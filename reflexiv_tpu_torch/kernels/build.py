@@ -1,0 +1,116 @@
+"""Build and load the hand-written CUDA kernels (``reflexiv_tpu_torch/csrc``).
+
+At first use, every ``csrc/*.cu`` file is compiled by ``nvcc`` into one
+shared library with a plain C interface and loaded with ``ctypes``:
+
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \
+         -Xcompiler -fPIC -o <build>/<hash>/libreflexiv_kernels.so csrc/*.cu
+
+The build directory is ``build/kernels/<hash>`` beside the package (listed
+in ``.gitignore``), keyed by a hash of the sources and the flags, so a
+changed source rebuilds and an unchanged one loads at once. Any failure
+(no ``nvcc``, a compile error, a load error) raises: there is no fallback.
+"""
+from __future__ import annotations
+
+import ctypes
+import glob
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from typing import Optional
+
+PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+CSRC_DIR = os.path.join(PKG_DIR, "csrc")
+BUILD_ROOT = os.path.join(os.path.dirname(PKG_DIR), "build", "kernels")
+LIB_NAME = "libreflexiv_kernels.so"
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC"]
+
+_P = ctypes.c_void_p
+_I64 = ctypes.c_int64
+_I32 = ctypes.c_int
+# C signatures of the kernels' launchers; the two launchers return
+# cudaGetLastError() (0 on success)
+_SIGNATURES = {
+    # (bases, lengths, out, R, L, k, front_clip, end_clip, stream)
+    "rfx_extract_canonical_keys": [_P, _P, _P, _I64, _I64, _I32, _I32, _I32, _P],
+    # (keys_in, buf0, buf1, block_counts, digit_totals, n, bits, stream)
+    "rfx_radix_sort_keys": [_P, _P, _P, _P, _P, _I64, _I32, _P],
+    # (n) -> number of tiles, the rows of block_counts
+    "rfx_radix_sort_blocks": [_I64],
+}
+
+_lib: Optional[ctypes.CDLL] = None
+last_build_seconds: float = 0.0   # 0.0 when the library came from the cache
+
+
+def _sources():
+    srcs = sorted(glob.glob(os.path.join(CSRC_DIR, "*.cu")))
+    if not srcs:
+        raise RuntimeError(f"no CUDA sources under {CSRC_DIR}")
+    return srcs
+
+
+def _nvcc() -> str:
+    for cand in (shutil.which("nvcc"),
+                 os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"),
+                              "bin", "nvcc")):
+        if cand and os.path.exists(cand):
+            return cand
+    raise RuntimeError("nvcc not found (PATH or $CUDA_HOME/bin): the CUDA "
+                       "kernels are built on the machine with the card")
+
+
+def _digest(srcs) -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for p in srcs:
+        h.update(os.path.basename(p).encode())
+        with open(p, "rb") as fh:
+            h.update(fh.read())
+    return h.hexdigest()[:16]
+
+
+def build() -> str:
+    """Compile the kernels if this source hash has no library yet; returns
+    the library path."""
+    global last_build_seconds
+    srcs = _sources()
+    out_dir = os.path.join(BUILD_ROOT, _digest(srcs))
+    lib_path = os.path.join(out_dir, LIB_NAME)
+    if os.path.exists(lib_path):
+        last_build_seconds = 0.0
+        return lib_path
+    os.makedirs(out_dir, exist_ok=True)
+    tmp = f"{lib_path}.{os.getpid()}.tmp"
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *srcs]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(
+            f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n"
+            f"{proc.stdout}\n{proc.stderr}")
+    os.replace(tmp, lib_path)   # atomic: a concurrent build sees all or none
+    last_build_seconds = time.perf_counter() - t0
+    return lib_path
+
+
+def lib() -> ctypes.CDLL:
+    """The loaded kernel library (built on first call)."""
+    global _lib
+    if _lib is None:
+        handle = ctypes.CDLL(build())
+        for name, argtypes in _SIGNATURES.items():
+            fn = getattr(handle, name)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+        _lib = handle
+    return _lib
+
+
+def check(err: int, what: str) -> None:
+    """Raise if a launcher returned a CUDA error code."""
+    if err != 0:
+        raise RuntimeError(f"{what}: CUDA error {err}")
