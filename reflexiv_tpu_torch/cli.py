@@ -1,15 +1,18 @@
-"""Command-line interface: the ``run`` and ``counter`` commands of ``reflexiv_tpu.cli``.
+"""Command-line interface: the ``run``, ``counter`` and ``reduce`` commands of ``reflexiv_tpu.cli``.
 
 Same command names and flags as ``reflexiv_tpu/cli.py`` (the reference
 launcher's, ``util/Parameter.java:68-104``), plus ``-device`` (default
 ``cuda``; ``cuda`` without a usable card raises, it never runs on the CPU
-in its place). The other commands are not ported yet: they print so and
-exit with status 2.
+in its place). ``run`` takes k <= 31; ``counter`` and ``reduce`` take
+k <= 99. The other commands, and ``reduce -accurate``, are not ported yet:
+they print so and exit with status 2.
 
     python -m reflexiv_tpu_torch.cli run -fastq 'reads*.fq.gz' \
         -outfile ./result -kmer 31 -cover 3
     python -m reflexiv_tpu_torch.cli counter -fastq reads.fq.gz \
-        -outfile ./out -kmer 31 -device cpu
+        -outfile ./out -kmer 61 -device cpu
+    python -m reflexiv_tpu_torch.cli reduce -fastq reads.fq.gz \
+        -outfile ./out -cover 3
 """
 from __future__ import annotations
 
@@ -20,7 +23,7 @@ import sys
 import time
 
 from . import __version__, metrics
-from .bitpack import check_k
+from .bitpack import RUN_MAX_K, check_k
 from .device import resolve_device, synchronize
 from .params import DEFAULT_KLIST, Params
 
@@ -30,7 +33,8 @@ COMMANDS = (
     "run", "meta", "counter", "reduce", "reassembler",
     "merger", "mercy", "preprocess", "stitch",
 )
-PORTED = ("run", "counter")
+PORTED = ("run", "counter", "reduce")
+UNPORTED_FLAGS = {"reduce": ("accurate",)}   # refused, exit status 2
 
 
 def _add_common(p: argparse.ArgumentParser) -> None:
@@ -197,6 +201,7 @@ def cmd_run(params: Params, seed: int, device) -> None:
     from .io import write_contigs_fasta, write_success_marker
     from .kmer_io import read_count_table
 
+    check_k(params.k, RUN_MAX_K)   # the extension round's keys are one word
     met = metrics.current()
     if params.input_kmer:
         keys, counts = read_count_table(params.input_kmer, params.k)
@@ -224,6 +229,13 @@ def cmd_run(params: Params, seed: int, device) -> None:
     )
 
 
+def cmd_reduce(params: Params, seed: int, device) -> None:
+    """Multi-k counting + sorting + reduction (MainOfReduce)."""
+    from .dynamic import dynamic_reduction
+
+    dynamic_reduction(params, seed=seed, device=device)
+
+
 def main(argv=None) -> int:
     logging.basicConfig(
         level=logging.INFO,
@@ -246,9 +258,13 @@ def main(argv=None) -> int:
               f"yet (ported: {', '.join(PORTED)}); use reflexiv_tpu.cli",
               file=sys.stderr)
         return 2
+    for flag in UNPORTED_FLAGS.get(args.command, ()):
+        if getattr(args, flag):
+            print(f"reflexiv-tpu-torch: {args.command} -{flag} is not ported "
+                  "yet; use reflexiv_tpu.cli", file=sys.stderr)
+            return 2
     params = params_from_args(args)
     params.validate()
-    check_k(params.k)
     device = resolve_device(args.device)
 
     t0 = time.time()

@@ -1,4 +1,5 @@
-// LSD radix sort of non-negative int64 keys, ascending.
+// LSD radix sort of non-negative int64 keys, or of rows of W such words
+// compared word by word, ascending.
 //
 // Replaces the TPU sort kernels of reflexiv_tpu/sort_kernels.py that
 // `sort_pairs` / `sort_pairs_padded` run: `_local_sort_kernel` (bitonic
@@ -12,6 +13,13 @@
 // every significant bit set, sorts to the tail. Only the `bits` low bits are
 // sorted (keys must lie in [0, 2^bits)), in ceil(bits / 8) passes of 8 bits,
 // so k = 31 takes 8 passes.
+//
+// Rows (k >= 32, W = ceil(k / 31) words of at most 62 bits each): the
+// passes run over the words from the last to the first, each pass stable,
+// and every pass moves whole rows. A full word takes 8 passes and the last
+// word ceil(2 r / 8), r its base count, so k = 95 (31 + 31 + 31 + 2 bases)
+// takes 8 + 8 + 8 + 1 = 25 passes. W is a template argument; W = 1 is the
+// key sort above.
 //
 // One pass = three kernels:
 //   1. histogram: per tile of kTile keys, the count of each 8-bit digit,
@@ -29,10 +37,10 @@
 // offset. So equal digits keep index order across lanes, warps, rounds and
 // (by the scan) tiles.
 //
-// Bound: device-memory bytes (per pass, 2 reads and 1 write of 8 bytes per
-// key, plus the scattered writes' partial-sector waste). The tile histogram
-// lives in shared memory; the scatter's writes for one digit within a warp
-// round are contiguous.
+// Bound: device-memory bytes (per pass, 2 reads of the digit's word and 1
+// read + 1 write of the 8W-byte row per element, plus the scattered writes'
+// partial-sector waste). The tile histogram lives in shared memory; the
+// scatter's writes for one digit within a warp round are contiguous.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -53,16 +61,18 @@ __device__ __forceinline__ unsigned digit_of(int64_t key, int shift) {
   return (unsigned)(((unsigned long long)key >> shift) & (kRadix - 1));
 }
 
+// W: words per row; `word` is the word whose digit this pass sorts by
+template <int W>
 __global__ void histogram_kernel(const int64_t* __restrict__ keys, int64_t n,
-                                 int shift, uint32_t* __restrict__ counts,
-                                 int nblocks) {
+                                 int word, int shift,
+                                 uint32_t* __restrict__ counts, int nblocks) {
   __shared__ uint32_t hist[kRadix];
   hist[threadIdx.x] = 0;
   __syncthreads();
   const int64_t base = (int64_t)blockIdx.x * kTile;
   for (int i = threadIdx.x; i < kTile; i += kThreads) {
     const int64_t idx = base + i;
-    if (idx < n) atomicAdd(&hist[digit_of(keys[idx], shift)], 1u);
+    if (idx < n) atomicAdd(&hist[digit_of(keys[idx * W + word], shift)], 1u);
   }
   __syncthreads();
   counts[(int64_t)threadIdx.x * nblocks + blockIdx.x] = hist[threadIdx.x];
@@ -110,9 +120,10 @@ __global__ void scan_kernel(uint32_t* __restrict__ counts, int nblocks,
   if (threadIdx.x == 0) totals[blockIdx.x] = carry;
 }
 
+template <int W>
 __global__ void scatter_kernel(const int64_t* __restrict__ in,
-                               int64_t* __restrict__ out, int64_t n, int shift,
-                               const uint32_t* __restrict__ counts,
+                               int64_t* __restrict__ out, int64_t n, int word,
+                               int shift, const uint32_t* __restrict__ counts,
                                const uint32_t* __restrict__ totals,
                                int nblocks) {
   __shared__ uint32_t scan_buf[kRadix];
@@ -142,7 +153,7 @@ __global__ void scatter_kernel(const int64_t* __restrict__ in,
   for (int round = 0; round < kItems; ++round) {
     const int64_t idx = tile + (int64_t)round * kThreads + t;
     const bool valid = idx < n;
-    const int64_t key = valid ? in[idx] : 0;
+    const int64_t key = valid ? in[idx * W + word] : 0;
     // out-of-range lanes get a digit no real key has, so they never join
     // a real key's group
     const unsigned d = valid ? digit_of(key, shift) : 0xFFFFFFFFu;
@@ -153,7 +164,12 @@ __global__ void scatter_kernel(const int64_t* __restrict__ in,
     if (valid) {
       uint32_t pos = base[d] + rank;
       for (int w = 0; w < warp; ++w) pos += warp_cnt[w][d];
-      out[pos] = key;
+      if (W == 1) {
+        out[pos] = key;
+      } else {
+#pragma unroll
+        for (int i = 0; i < W; ++i) out[(int64_t)pos * W + i] = in[idx * W + i];
+      }
     }
     __syncthreads();
     // thread t owns digit t: advance its slot past this round, clear counts
@@ -167,10 +183,72 @@ __global__ void scatter_kernel(const int64_t* __restrict__ in,
   }
 }
 
+// One 8-bit pass over digit `shift` of word `word`: src -> dst.
+template <int W>
+int radix_pass(const int64_t* src, int64_t* dst, uint32_t* counts,
+               uint32_t* totals, int64_t n, int nblocks, int word, int shift,
+               cudaStream_t s) {
+  histogram_kernel<W><<<nblocks, kThreads, 0, s>>>(src, n, word, shift,
+                                                   counts, nblocks);
+  int err = (int)cudaGetLastError();
+  if (err) return err;
+  scan_kernel<<<kRadix, kScanThreads, 0, s>>>(counts, nblocks, totals);
+  err = (int)cudaGetLastError();
+  if (err) return err;
+  scatter_kernel<W><<<nblocks, kThreads, 0, s>>>(src, dst, n, word, shift,
+                                                 counts, totals, nblocks);
+  return (int)cudaGetLastError();
+}
+
+// Passes over the words from the last to the first: `last_bits` bits of
+// the last word, 62 of every other one. Pass p writes buf0 (p even) or
+// buf1 (p odd).
+template <int W>
+int sort_rows(const void* keys_in, void* buf0, void* buf1, void* counts,
+              void* totals, int64_t n, int last_bits, cudaStream_t s) {
+  const int nblocks = (int)((n + kTile - 1) / kTile);
+  const int64_t* src = (const int64_t*)keys_in;
+  int p = 0;
+  for (int word = W - 1; word >= 0; --word) {
+    const int bits = word == W - 1 ? last_bits : 62;
+    const int passes = (bits + kRadixBits - 1) / kRadixBits;
+    for (int q = 0; q < passes; ++q, ++p) {
+      int64_t* dst = (int64_t*)((p % 2 == 0) ? buf0 : buf1);
+      const int err = radix_pass<W>(src, dst, (uint32_t*)counts,
+                                    (uint32_t*)totals, n, nblocks, word,
+                                    q * kRadixBits, s);
+      if (err) return err;
+      src = dst;
+    }
+  }
+  return 0;
+}
+
 }  // namespace
 
 extern "C" int rfx_radix_sort_blocks(int64_t n) {
   return (int)((n + kTile - 1) / kTile);
+}
+
+// (n, W) int64 rows, 2 <= W <= 4, sorted lexicographically over the words;
+// `last_bits` significant bits in the last word, 62 in the others. The
+// sorted rows end in buf[(P - 1) % 2], P the total pass count; scratch as
+// for rfx_radix_sort_keys.
+extern "C" int rfx_radix_sort_rows(const void* keys_in, void* buf0, void* buf1,
+                                   void* counts, void* totals, int64_t n,
+                                   int W, int last_bits, void* stream) {
+  if (n <= 0) return 0;
+  cudaStream_t s = (cudaStream_t)stream;
+  switch (W) {
+    case 2:
+      return sort_rows<2>(keys_in, buf0, buf1, counts, totals, n, last_bits, s);
+    case 3:
+      return sort_rows<3>(keys_in, buf0, buf1, counts, totals, n, last_bits, s);
+    case 4:
+      return sort_rows<4>(keys_in, buf0, buf1, counts, totals, n, last_bits, s);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
 }
 
 // keys_in is read only; pass p writes buf0 (p even) or buf1 (p odd), so the
@@ -180,27 +258,6 @@ extern "C" int rfx_radix_sort_keys(const void* keys_in, void* buf0, void* buf1,
                                    void* counts, void* totals, int64_t n,
                                    int bits, void* stream) {
   if (n <= 0) return 0;
-  cudaStream_t s = (cudaStream_t)stream;
-  const int nblocks = rfx_radix_sort_blocks(n);
-  const int passes = (bits + kRadixBits - 1) / kRadixBits;
-  const int64_t* src = (const int64_t*)keys_in;
-  for (int p = 0; p < passes; ++p) {
-    int64_t* dst = (int64_t*)((p % 2 == 0) ? buf0 : buf1);
-    const int shift = p * kRadixBits;
-    histogram_kernel<<<nblocks, kThreads, 0, s>>>(src, n, shift,
-                                                 (uint32_t*)counts, nblocks);
-    int err = (int)cudaGetLastError();
-    if (err) return err;
-    scan_kernel<<<kRadix, kScanThreads, 0, s>>>((uint32_t*)counts, nblocks,
-                                               (uint32_t*)totals);
-    err = (int)cudaGetLastError();
-    if (err) return err;
-    scatter_kernel<<<nblocks, kThreads, 0, s>>>(
-        src, dst, n, shift, (const uint32_t*)counts, (const uint32_t*)totals,
-        nblocks);
-    err = (int)cudaGetLastError();
-    if (err) return err;
-    src = dst;
-  }
-  return 0;
+  return sort_rows<1>(keys_in, buf0, buf1, counts, totals, n, bits,
+                      (cudaStream_t)stream);
 }

@@ -8,23 +8,19 @@ is marked blocked or extendable by the error-correction rule
 (``ReflexivDSMain.java:3425-3484``); the same selection on (k-1)-base
 suffix groups marks the left end (``:3543-3617``). The second pass runs in
 the first pass's sorted order, so the output rows come in the same order as
-the JAX package's.
+the JAX package's. For k >= 32 the group keys are several words
+(``bitpack``); a dead row's key copies the JAX all-ones limbs, including
+their tie with poly-T where the group width is a multiple of 16
+(``bitpack.group_sentinel``).
 """
 from __future__ import annotations
 
 import torch
 
-from .bitpack import group_sentinel, pack_bases, revcomp_bases, unpack_bases
-from .join_core import segment_sum, segments
+from .bitpack import (group_sentinel, pack_bases, revcomp_bases,
+                      unpack_bases, where_live)
+from .join_core import lexsort_rows, segment_sum, segments
 from .records import Records
-
-
-def lexsort2(primary: torch.Tensor, secondary: torch.Tensor) -> torch.Tensor:
-    """Stable order by ``primary`` then ``secondary`` (``jnp.lexsort`` of
-    two keys: ties keep row order)."""
-    o1 = torch.sort(secondary, stable=True).indices
-    o2 = torch.sort(primary[o1], stable=True).indices
-    return o1[o2]
 
 
 def _fork_pass(bases, cover, valid, *, lo, hi, ext_col, min_error, blocked,
@@ -34,11 +30,11 @@ def _fork_pass(bases, cover, valid, *, lo, hi, ext_col, min_error, blocked,
     pass's sorted order."""
     N = bases.shape[0]
     width = hi - lo
-    keyed = torch.where(valid, pack_bases(bases[:, lo:hi], width),
-                        group_sentinel(width))
+    keyed = where_live(valid, pack_bases(bases[:, lo:hi], width),
+                       group_sentinel(width))
     ext = bases[:, ext_col].to(torch.int64)
     # key asc, then coverage desc, then ext desc -> group winner first
-    order = lexsort2(keyed, -4 * cover.to(torch.int64) - ext)
+    order = lexsort_rows(keyed, -4 * cover.to(torch.int64) - ext)
     sbases, scover, svalid = bases[order], cover[order], valid[order]
     is_start, seg = segments(keyed[order])
 
@@ -61,7 +57,7 @@ def _fork_pass(bases, cover, valid, *, lo, hi, ext_col, min_error, blocked,
 
 
 def build_initial_records(
-    keys: torch.Tensor,     # (U,) int64 canonical k-mers
+    keys: torch.Tensor,     # (U,) int64 canonical k-mers, or (U, W) words
     counts: torch.Tensor,   # (U,) int32
     *,
     k: int,

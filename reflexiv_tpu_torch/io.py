@@ -174,3 +174,8 @@ def write_success_marker(directory: str) -> None:
     os.makedirs(directory, exist_ok=True)
     with open(os.path.join(directory, "_SUCCESS"), "w"):
         pass
+
+
+def has_success_marker(directory: str) -> bool:
+    """Whether a stage directory holds its ``_SUCCESS`` marker."""
+    return os.path.exists(os.path.join(directory, "_SUCCESS"))

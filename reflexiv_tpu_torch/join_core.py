@@ -36,11 +36,29 @@ def merge_gate(f_left, f_right, r_left, r_right, f_ext, r_ext) -> GateResult:
 
 
 def segments(skey: torch.Tensor):
-    """Sorted keys -> ``(is_start, seg)``: equal-key runs as segments."""
-    is_start = torch.ones_like(skey, dtype=torch.bool)
-    is_start[1:] = skey[1:] != skey[:-1]
+    """Sorted ``(N,)`` keys or ``(N, W)`` word rows -> ``(is_start, seg)``:
+    equal-key runs as segments (a row starts one where any word differs)."""
+    is_start = torch.ones(skey.shape[0], dtype=torch.bool, device=skey.device)
+    diff = skey[1:] != skey[:-1]
+    is_start[1:] = diff.any(-1) if skey.dim() == 2 else diff
     seg = torch.cumsum(is_start, 0) - 1
     return is_start, seg
+
+
+def lexsort_rows(keys: torch.Tensor, secondary: torch.Tensor = None
+                 ) -> torch.Tensor:
+    """Stable order by ``keys`` (``(N,)`` or ``(N, W)`` rows compared word
+    by word), then by ``secondary``: ``jnp.lexsort`` of
+    ``(secondary, word W-1, ..., word 0)``, ties keeping row order. Chained
+    stable sorts, least significant first."""
+    cols = [keys] if keys.dim() == 1 else \
+        [keys[:, w] for w in range(keys.shape[1] - 1, -1, -1)]
+    if secondary is not None:
+        cols = [secondary] + cols
+    order = torch.sort(cols[0], stable=True).indices
+    for col in cols[1:]:
+        order = order[torch.sort(col[order], stable=True).indices]
+    return order
 
 
 def segment_sum(values: torch.Tensor, seg: torch.Tensor, n: int):

@@ -1,10 +1,13 @@
 """Build and load the hand-written CUDA kernels (``reflexiv_tpu_torch/csrc``).
 
-At first use, every ``csrc/*.cu`` file is compiled by ``nvcc`` into one
-shared library with a plain C interface and loaded with ``ctypes``:
+At first use, every ``csrc/*.cu`` file is compiled by its own ``nvcc``,
+all started together, and the objects are linked into one shared library
+with a plain C interface, loaded with ``ctypes``:
 
-    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \
-         -Xcompiler -fPIC -o <build>/<hash>/libreflexiv_kernels.so csrc/*.cu
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 \
+         -Xcompiler -fPIC -c csrc/<name>.cu -o <build>/<hash>/<name>.o
+    nvcc -gencode arch=compute_90a,code=sm_90a -shared \
+         -o <build>/<hash>/libreflexiv_kernels.so <build>/<hash>/*.o
 
 The build directory is ``build/kernels/<hash>`` beside the package (listed
 in ``.gitignore``), keyed by a hash of the sources and the flags, so a
@@ -26,19 +29,27 @@ PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(PKG_DIR, "csrc")
 BUILD_ROOT = os.path.join(os.path.dirname(PKG_DIR), "build", "kernels")
 LIB_NAME = "libreflexiv_kernels.so"
-NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC"]
+ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
+NVCC_FLAGS = ARCH_FLAGS + ["-std=c++17", "-O3", "-Xcompiler", "-fPIC"]
 
 _P = ctypes.c_void_p
 _I64 = ctypes.c_int64
 _I32 = ctypes.c_int
-# C signatures of the kernels' launchers; the two launchers return
+# C signatures of the kernels' launchers; the launchers return
 # cudaGetLastError() (0 on success)
 _SIGNATURES = {
     # (bases, lengths, out, R, L, k, front_clip, end_clip, stream)
     "rfx_extract_canonical_keys": [_P, _P, _P, _I64, _I64, _I32, _I32, _I32, _P],
+    "rfx_extract_canonical_rows": [_P, _P, _P, _I64, _I64, _I32, _I32, _I32, _P],
     # (keys_in, buf0, buf1, block_counts, digit_totals, n, bits, stream)
     "rfx_radix_sort_keys": [_P, _P, _P, _P, _P, _I64, _I32, _P],
+    # (rows_in, buf0, buf1, block_counts, digit_totals, n, W, last_bits,
+    #  stream)
+    "rfx_radix_sort_rows": [_P, _P, _P, _P, _P, _I64, _I32, _I32, _P],
+    # (hi, lo, starts, out_hi, out_lo, nb, block, slot, stream)
+    "rfx_padded_exchange": [_P, _P, _P, _P, _P, _I64, _I64, _I64, _P],
+    # (src, tile_starts, out, n_tiles, stream)
+    "rfx_tile_gather": [_P, _P, _P, _I64, _P],
     # (n) -> number of tiles, the rows of block_counts
     "rfx_radix_sort_blocks": [_I64],
 }
@@ -85,13 +96,33 @@ def build() -> str:
         return lib_path
     os.makedirs(out_dir, exist_ok=True)
     tmp = f"{lib_path}.{os.getpid()}.tmp"
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *srcs]
+    nvcc = _nvcc()
     t0 = time.perf_counter()
+    objs, procs = [], []
+    for src in srcs:
+        obj = os.path.join(out_dir, os.path.basename(src)[:-3]
+                           + f".{os.getpid()}.o")
+        cmd = [nvcc, *NVCC_FLAGS, "-c", src, "-o", obj]
+        objs.append(obj)
+        procs.append((cmd, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True)))
+    failed = []
+    for cmd, proc in procs:
+        log, _ = proc.communicate()
+        if proc.returncode != 0:
+            failed.append(f"nvcc failed ({proc.returncode}): "
+                          f"{' '.join(cmd)}\n{log}")
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    cmd = [nvcc, *ARCH_FLAGS, "-shared", "-o", tmp, *objs]
     proc = subprocess.run(cmd, capture_output=True, text=True)
     if proc.returncode != 0:
         raise RuntimeError(
-            f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n"
+            f"nvcc link failed ({proc.returncode}): {' '.join(cmd)}\n"
             f"{proc.stdout}\n{proc.stderr}")
+    for obj in objs:
+        os.remove(obj)
     os.replace(tmp, lib_path)   # atomic: a concurrent build sees all or none
     last_build_seconds = time.perf_counter() - t0
     return lib_path

@@ -69,4 +69,6 @@ def test_keys_from_limbs_inverts_limbs_from_keys(k):
 
 def test_k_out_of_range_raises():
     with pytest.raises(ValueError):
-        tbp.pack_bases(torch.zeros((2, 32), dtype=torch.uint8), 32)
+        tbp.pack_bases(torch.zeros((2, 100), dtype=torch.uint8), 100)
+    with pytest.raises(ValueError):      # the run path keeps one word
+        tbp.check_k(32, tbp.RUN_MAX_K)
