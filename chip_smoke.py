@@ -24,7 +24,10 @@ script. Phases, one line each:
      lists are identical;
   6. the partition probes (``reflexiv_tpu_torch.probes``): the padded
      exchange of 2^24 (hi, lo) pairs and 4096 random 4 KB tile loads, each
-     kernel's whole output equal to its plain version;
+     kernel's whole output equal to its plain version; then the tile
+     gather, ``index_select`` and the plain gather in interleaved trains of
+     200 calls (median of 5 trains), at 4096 tiles from 2^24 words and at
+     65,536 tiles from 2^26 words (256 MB each way, past the 50 MB L2);
   7. ``reduce`` at bacterial scale: ``cli.main(["reduce", ...])`` on the
      phase-4 FASTQ with the default klist (23, 31, 41, 53, 67, 81, 95);
      every ``_SUCCESS`` present, and the one-word and W-word kernels both
@@ -34,7 +37,8 @@ script. Phases, one line each:
 
 Phases 2 and 3 also hold the W-word extraction and row sort (k = 61, 81
 and 95: W = 2, 3 and 4 words) to their plain versions on the main path's
-read matrix.
+read matrix. Each sort line gives the design traffic of its pass plan and
+the rate it reached.
 
 Tolerance: every comparison is exact (integer keys, equal contig lists,
 equal files). The line before the last is the kernels' JSON record; the
@@ -63,6 +67,7 @@ ROW_KS = (61, 81, 95)        # W = 2, 3 and 4 words
 ACGT = np.frombuffer(b"ACGT", np.uint8)
 HBM_BYTES_S = 3.35e12        # H100 SXM device memory
 INT_OPS_S = 67e12            # the card's non-tensor 32-bit peak
+BIG_GATHER = (1 << 26, 1 << 16)   # (source words, tiles): 256 MB each way
 
 
 def say(msg: str) -> None:
@@ -120,6 +125,43 @@ def compare(torch, name, kernel, plain):
     k2 = cuda_ms(kernel)
     p2 = cuda_ms(plain)
     return err, (k1 + k2) / 2, (p1 + p2) / 2
+
+
+def trains_ms(torch, fns, calls=200, trains=5):
+    """Median over ``trains`` of the mean ms per call in a train of
+    ``calls`` back-to-back calls. The functions' trains are interleaved,
+    in order and in reverse order by turns, after one unrecorded round."""
+    times = {name: [] for name in fns}
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    names = list(fns)
+    for r in range(-1, trains):
+        for name in (names if r % 2 == 0 else names[::-1]):
+            torch.cuda.synchronize()
+            start.record()
+            for _ in range(calls):
+                fns[name]()
+            end.record()
+            torch.cuda.synchronize()
+            if r >= 0:
+                times[name].append(start.elapsed_time(end) / calls)
+    return {name: float(np.median(t)) for name, t in times.items()}
+
+
+def sort_traffic(radix_sort, n: int, W: int, last_bits: int) -> int:
+    """Design bytes of one sort by its pass plan: the histogram reads
+    every word once; a pass reads its key (8 B) and index (4 B, rows), and
+    writes its key where the plan says and the index; the last pass of a
+    row sort gathers the other W - 1 words and writes the rows."""
+    total = 8 * W * n
+    for _w, _s, _k, idx_src, _d, flags in radix_sort.pass_plan(W, last_bits):
+        total += 8 * n + (4 * n if idx_src >= 0 else 0)
+        if flags & radix_sort.WRITE_ROWS:
+            total += 8 * (W - 1) * n + 8 * W * n
+            continue
+        total += 8 * n if flags & radix_sort.WRITE_KEYS else 0
+        total += 4 * n if W > 1 else 0
+    return total
 
 
 def bound_ms(bytes_moved: float, int_ops: float = 0.0):
@@ -234,8 +276,11 @@ def main(argv=None) -> int:
     rows["sort"] = (err, ms, pms)
     bounds["sort"] = bound_ms(16 * keys31.numel())
     library["sort"] = probes.cuda_ms(lambda: torch.sort(keys31))
+    design = sort_traffic(radix_sort, keys31.numel(), 1, 62)
     say(f"phase 3 sort main-path keys: {keys31.numel()} int64 (k=31, 62 "
-        f"bits), equal; kernel {ms:.3f} ms, torch.sort {pms:.3f} ms")
+        f"bits), equal; kernel {ms:.3f} ms, torch.sort {pms:.3f} ms; bound "
+        f"{bounds['sort'][0]:.3f} ms; design traffic {design / 1e9:.3f} GB, "
+        f"{design / ms / 1e6:.1f} GB/s")
     del keys31
     for k in ROW_KS:
         W = num_words(k)
@@ -247,9 +292,12 @@ def main(argv=None) -> int:
             lambda: radix_sort.sort_rows_torch(krows))
         rows[f"sort_rows{W}"] = (err, ms, pms)
         bounds[f"sort_rows{W}"] = bound_ms(16 * krows.numel())
+        design = sort_traffic(radix_sort, krows.shape[0], W, last)
         say(f"phase 3 sort rows k={k}: {krows.shape[0]} rows x {W} words, "
             f"equal; kernel {ms:.3f} ms, chained stable torch.sort "
-            f"{pms:.3f} ms")
+            f"{pms:.3f} ms; bound {bounds[f'sort_rows{W}'][0]:.3f} ms; "
+            f"design traffic {design / 1e9:.3f} GB, "
+            f"{design / ms / 1e6:.1f} GB/s")
         del krows
     g = torch.Generator(device=dev).manual_seed(args.seed)
     pool = torch.randint(0, 1 << 62, (1 << 20,), generator=g, device=dev)
@@ -308,6 +356,32 @@ def main(argv=None) -> int:
     say(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))
     return 0
+
+
+def gather_trains(torch, partition, src, tiles, label):
+    """Phase 6's tile-gather timing: the kernel and ``index_select`` equal
+    to the plain gather, then all three in interleaved trains. Returns the
+    kernel's (max_abs_err, ms, plain_ms) and ``index_select``'s ms."""
+    partition.tile_gather(src, tiles)   # the host check of the starts, once
+    want = partition.tile_gather_torch(src, tiles)
+    rows_of_src = src.view(-1, partition.TILE)
+    tile_idx = (tiles // partition.TILE).to(torch.int64)
+    fns = {
+        "tile_gather": lambda: partition.tile_gather(src, tiles, check=False),
+        "index_select": lambda: torch.index_select(rows_of_src, 0,
+                                                   tile_idx).view(-1),
+        "plain": lambda: partition.tile_gather_torch(src, tiles)}
+    for name, fn in fns.items():
+        if not torch.equal(fn(), want):
+            raise SystemExit(f"{name} != plain tile gather ({label} tiles)")
+    ms = trains_ms(torch, fns)
+    moved = tiles.numel() * 2 * 4 * partition.TILE
+    say(f"phase 6 tile_gather {label} tiles: equal; median of 5 trains of "
+        f"200 calls (order alternating), ms: " + ", ".join(
+            f"{name} {t:.4f} ({moved / t / 1e6:.0f} GB/s)"
+            for name, t in ms.items())
+        + f"; bound {bound_ms(moved + 4 * tiles.numel())[0]:.4f} ms")
+    return (0, ms["tile_gather"], ms["plain"]), ms["index_select"]
 
 
 def phases_4_to_8(torch, args, dev, work, fq, genome, launches, rows,
@@ -417,28 +491,22 @@ def phases_4_to_8(torch, args, dev, work, fq, genome, launches, rows,
     bounds["exchange"] = bound_ms(4 * (2 * (n + maxrun) + starts.numel()
                                        + out_words))
     del hi_p, lo_p, starts, _hi, _lo
+    say(f"phase 6 padded_exchange: {rows['exchange'][1]:.3f} ms (plain "
+        f"{rows['exchange'][2]:.3f} ms, no one-call library counterpart)")
     src, tiles = probes.gather_inputs(dev, args.seed)
-    partition.tile_gather(src, tiles)
-    rows["gather"] = compare(
-        torch, "tile_gather",
-        lambda: partition.tile_gather(src, tiles, check=False),
-        lambda: partition.tile_gather_torch(src, tiles))
-    rows_of_src = src.view(-1, partition.TILE)
-    tile_idx = (tiles // partition.TILE).to(torch.int64)
-
-    def library_gather():
-        return torch.index_select(rows_of_src, 0, tile_idx).view(-1)
-
-    if not torch.equal(library_gather(), partition.tile_gather(src, tiles)):
-        raise SystemExit("index_select yardstick != tile_gather")
-    library["gather"] = probes.cuda_ms(library_gather, reps=20)
+    rows["gather"], library["gather"] = gather_trains(torch, partition, src,
+                                                      tiles, "4096")
     bounds["gather"] = bound_ms(tiles.numel() * (4 + 2 * 4 * partition.TILE))
-    say(f"phase 6 kernels: padded_exchange {rows['exchange'][1]:.3f} ms "
-        f"(plain {rows['exchange'][2]:.3f} ms, no one-call library "
-        f"counterpart); tile_gather {rows['gather'][1]:.4f} ms (plain "
-        f"{rows['gather'][2]:.4f} ms, index_select {library['gather']:.4f} "
-        "ms)")
-    del src, tiles, rows_of_src, tile_idx
+    del src, tiles
+    n_src, n_tiles = BIG_GATHER
+    g = torch.Generator(device=dev).manual_seed(args.seed)
+    src = torch.randint(0, 2**31 - 1, (n_src,), dtype=torch.int32,
+                        generator=g, device=dev)
+    tiles = (torch.randint(0, n_src // partition.TILE, (n_tiles,),
+                           generator=g, device=dev)
+             * partition.TILE).to(torch.int32)
+    gather_trains(torch, partition, src, tiles, f"{n_tiles}")
+    del src, tiles
     torch.cuda.empty_cache()
 
     # 7. reduce at bacterial scale, default klist

@@ -24,12 +24,24 @@
 // alignment heads) and writes as many; counted as the input read once and
 // the padded output written once, at N = 2^24 pairs, nb = 256, maxrun =
 // 1024 that is 134 MB + 1,074 MB. The tile gather moves 4 KB in and 4 KB out
-// per tile (16.8 MB each way at 4096 tiles: launch-bound on an H100).
-// Design: one CTA per run (resp. tile), 256 threads, each moving 16 bytes
+// per tile.
+//
+// Exchange design: one CTA per run, 256 threads, each moving 16 bytes
 // (uint4) per step; neighbouring threads touch neighbouring addresses on
 // both sides. Every source run starts 4096-byte aligned, and a slot is
 // 16-byte aligned whenever slot % 4 == 0; otherwise the exchange copies one
 // word per thread per step.
+//
+// Tile gather design: one 256-thread CTA per tile, each thread one 16-byte
+// load and store. Stores are streaming (evict-first): the output is not
+// read back. Loads are too where the tiles exceed the L2 and so cannot be
+// found there again; below that, a caller that gathers the same tiles
+// again finds them in L2. A CTA waits through two device-memory latencies
+// in series (the start, then the tile), but a grid of thousands of small
+// CTAs keeps enough of them in flight: on the H100 this beat a persistent
+// ring of Hopper bulk copies (TMA), the shape of the TPU kernel's ring of
+// DMAs, and a persistent register pipeline, at 4096 and at 65,536 tiles
+// (scripts/tile_gather_forms.cu has all three; PERF.md the times).
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -39,6 +51,7 @@ constexpr int kThreads = 256;
 constexpr int kDigits = 256;
 constexpr int64_t kTile = 1024;
 constexpr unsigned kMaxGrid = 1u << 20;   // grid-stride beyond this
+constexpr unsigned kTileBytes = kTile * 4;
 
 __device__ __forceinline__ void copy_words(const uint32_t* __restrict__ src,
                                            uint32_t* __restrict__ dst,
@@ -71,13 +84,36 @@ __global__ void padded_exchange_kernel(const uint32_t* __restrict__ hi,
   }
 }
 
-__global__ void tile_gather_kernel(const uint32_t* __restrict__ src,
-                                   const int32_t* __restrict__ tile_starts,
-                                   uint32_t* __restrict__ out,
-                                   int64_t n_tiles) {
+// STREAM_LOADS: evict-first loads, for gathers whose tiles cannot stay in
+// L2 anyway; otherwise a caller that gathers the same tiles again finds
+// them there.
+template <bool STREAM_LOADS>
+__global__ void __launch_bounds__(kThreads) tile_gather_kernel(
+    const uint32_t* __restrict__ src, const int32_t* __restrict__ tile_starts,
+    uint32_t* __restrict__ out, int64_t n_tiles) {
   for (int64_t t = blockIdx.x; t < n_tiles; t += gridDim.x) {
-    copy_words(src + tile_starts[t], out + t * kTile, kTile, true);
+    const uint4* from =
+        reinterpret_cast<const uint4*>(src + tile_starts[t]) + threadIdx.x;
+    __stcs(reinterpret_cast<uint4*>(out + t * kTile) + threadIdx.x,
+           STREAM_LOADS ? __ldcs(from) : *from);
   }
+}
+
+// The current device's L2 size in bytes, read once per device.
+int l2_bytes(int64_t* bytes) {
+  constexpr int kMaxDevices = 64;
+  static int64_t cached[kMaxDevices];
+  int dev = 0, l2 = 0;
+  int err = (int)cudaGetDevice(&dev);
+  if (err) return err;
+  if (dev >= kMaxDevices) return (int)cudaErrorInvalidDevice;
+  if (cached[dev] == 0) {
+    err = (int)cudaDeviceGetAttribute(&l2, cudaDevAttrL2CacheSize, dev);
+    if (err) return err;
+    cached[dev] = l2 > 0 ? l2 : 1;
+  }
+  *bytes = cached[dev];
+  return 0;
 }
 
 unsigned grid_for(int64_t n) {
@@ -105,9 +141,19 @@ extern "C" int rfx_padded_exchange(const void* hi, const void* lo,
 extern "C" int rfx_tile_gather(const void* src, const void* tile_starts,
                                void* out, int64_t n_tiles, void* stream) {
   if (n_tiles <= 0) return 0;
-  tile_gather_kernel<<<grid_for(n_tiles), kThreads, 0,
-                       (cudaStream_t)stream>>>(
-      (const uint32_t*)src, (const int32_t*)tile_starts, (uint32_t*)out,
-      n_tiles);
+  int64_t l2 = 0;
+  const int err = l2_bytes(&l2);
+  if (err) return err;
+  const uint32_t* s = (const uint32_t*)src;
+  const int32_t* st = (const int32_t*)tile_starts;
+  uint32_t* o = (uint32_t*)out;
+  cudaStream_t strm = (cudaStream_t)stream;
+  if (n_tiles * (int64_t)kTileBytes > l2) {
+    tile_gather_kernel<true><<<grid_for(n_tiles), kThreads, 0, strm>>>(
+        s, st, o, n_tiles);
+  } else {
+    tile_gather_kernel<false><<<grid_for(n_tiles), kThreads, 0, strm>>>(
+        s, st, o, n_tiles);
+  }
   return (int)cudaGetLastError();
 }

@@ -1,5 +1,6 @@
-// LSD radix sort of non-negative int64 keys, or of rows of W such words
-// compared word by word, ascending.
+// Onesweep LSD radix sort of non-negative int64 keys, or of rows of W such
+// words compared word by word, ascending (after Adinets & Merrill, "Onesweep:
+// A Faster Least Significant Digit Radix Sort for GPUs", 2022).
 //
 // Replaces the TPU sort kernels of reflexiv_tpu/sort_kernels.py that
 // `sort_pairs` / `sort_pairs_padded` run: `_local_sort_kernel` (bitonic
@@ -10,37 +11,51 @@
 // scatters, so the counting sort becomes a radix sort. The contract is
 // `sort_pairs_padded`'s on one int64 key per element: keys ascending, and the
 // invalid-window sentinel (1 << 2k) - 1 from the extraction kernel, which has
-// every significant bit set, sorts to the tail. Only the `bits` low bits are
-// sorted (keys must lie in [0, 2^bits)), in ceil(bits / 8) passes of 8 bits,
-// so k = 31 takes 8 passes.
+// every significant bit set, sorts to the tail.
 //
-// Rows (k >= 32, W = ceil(k / 31) words of at most 62 bits each): the
-// passes run over the words from the last to the first, each pass stable,
-// and every pass moves whole rows. A full word takes 8 passes and the last
-// word ceil(2 r / 8), r its base count, so k = 95 (31 + 31 + 31 + 2 bases)
-// takes 8 + 8 + 8 + 1 = 25 passes. W is a template argument; W = 1 is the
-// key sort above.
+// The pass plan comes from the caller (kernels/radix_sort.py `pass_plan`),
+// one row of kPlanCols ints per 8-bit pass: (word, shift, key_src, idx_src,
+// dst, flags). Passes run over the words from the last to the first, each
+// word in ceil(bits / 8) passes. key_src / idx_src name the buffer (0 or 1)
+// the previous pass wrote, or -1: the key is fetched from the input through
+// the current index, and the index is the identity. dst names the buffer
+// this pass writes; flags say whether it writes keys (kWriteKeys) and, in the
+// last pass of a row sort, the whole rows (kWriteRows).
 //
-// One pass = three kernels:
-//   1. histogram: per tile of kTile keys, the count of each 8-bit digit,
-//      stored digit-major (counts[d * nblocks + b]);
-//   2. scan: one block per digit turns its row into exclusive offsets over
-//      the tiles and writes the digit's total;
-//   3. scatter: each tile ranks its keys STABLY and writes each to
-//      digit_start[d] + counts[d * nblocks + b] + rank.
-// LSD radix is only correct if every pass is a stable partition, so the
-// scatter never takes a slot with a global atomic. Within a tile, keys are
-// taken in rounds of kThreads in index order; inside a warp
-// `__match_any_sync` groups lanes by digit and the rank is the popcount of
-// the lower lanes in the group; warps are ordered by a per-round table of
-// digit counts per warp in shared memory, and rounds by a running digit
-// offset. So equal digits keep index order across lanes, warps, rounds and
-// (by the scan) tiles.
+// Keys (W = 1): the key is its own payload; the last pass writes buffer 0.
+// Rows (W = 2-4): every pass sorts (word, 32-bit index) pairs, so it moves
+// 12 bytes per element each way and never the 8W-byte row. A word's first
+// pass fetches its value through the index; the last pass writes the rows.
 //
-// Bound: device-memory bytes (per pass, 2 reads of the digit's word and 1
-// read + 1 write of the 8W-byte row per element, plus the scattered writes'
-// partial-sector waste). The tile histogram lives in shared memory; the
-// scatter's writes for one digit within a warp round are contiguous.
+// One sort:
+//   1. histogram: one read of the input builds every pass's 256-bin digit
+//      count (block histograms in shared memory, added to global ones);
+//   2. scan: one block per pass turns its counts into digit start offsets;
+//   3. one onesweep kernel per pass. Each CTA takes its tile number from a
+//      global counter, so every tile it waits on has started. It loads
+//      kItems keys per thread (warp-striped: each warp instruction reads 256
+//      contiguous bytes), ranks them STABLY in shared memory (warps in turn
+//      over their items, `__match_any_sync` groups of equal digits, per-warp
+//      digit counters: rank = earlier items + lower lanes), publishes its
+//      per-digit counts ("aggregate") to a status array, reorders the tile in
+//      shared memory by digit, and looks back over earlier tiles for its
+//      exclusive prefix per digit ("prefix"). It then writes each digit's
+//      run from shared memory, neighbouring threads on neighbouring
+//      addresses.
+// LSD radix is correct only if every pass is a stable partition: within a
+// tile the rank follows the index, and across tiles the look-back prefix
+// follows the tile number, which is also the position in the input.
+//
+// Status words are 64 bits: a flag in bit 62 (aggregate) or bit 63 (prefix)
+// and a count of up to 2^31 - 1 in the low 32 bits; 0 means "not yet
+// published". The count travels inside the word, so volatile loads (eight
+// predecessors per step of the look-back) and relaxed stores suffice; the
+// array and the tile counter are zeroed on the stream before each pass.
+//
+// Bound: device-memory bytes. Design traffic per element: the histogram's
+// read (8W bytes), then per pass 8 bytes of key in and out (keys), or 12 in
+// and 12 out (word + index), less the key writes a word's last pass skips,
+// plus the final pass's row gather. The status array adds 2 KB per tile.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -49,215 +64,437 @@ namespace {
 constexpr int kRadixBits = 8;
 constexpr int kRadix = 1 << kRadixBits;
 constexpr int kThreads = 256;            // == kRadix: one thread per digit
-constexpr int kItems = 16;               // keys per thread per tile
-constexpr int kTile = kThreads * kItems; // 4096 keys per tile
 constexpr int kWarps = kThreads / 32;
-constexpr int kScanThreads = 1024;
+constexpr int kMaxPasses = 32;           // 4 words x 8 passes
+constexpr int kPlanCols = 6;
+constexpr int kWriteKeys = 1;
+constexpr int kWriteRows = 2;
+constexpr int kHistBlocksPerSM = 4;
+constexpr int kHistRows = 4;           // rows per thread per histogram step
 constexpr unsigned kFull = 0xFFFFFFFFu;
+constexpr unsigned long long kAggregate = 1ull << 62;
+constexpr unsigned long long kPrefix = 1ull << 63;
+constexpr unsigned long long kCountMask = 0xFFFFFFFFull;
+constexpr int kMaxSpins = 1 << 26;
+constexpr int kLookBack = 8;          // status words read per look-back step
 
-static_assert(kThreads == kRadix, "scatter assigns one digit per thread");
+static_assert(kThreads == kRadix, "one thread per digit");
+
+// Tile geometry of the onesweep kernel: keys alone, or (key, index) pairs.
+template <bool PAIRS>
+struct Tile {
+  static constexpr int kItems = PAIRS ? 16 : 24;     // per thread
+  static constexpr int kSize = kThreads * kItems;
+  static constexpr int kKeyBytes = kSize * 8;
+  static constexpr int kIdxBytes = PAIRS ? kSize * 4 : 0;
+  static constexpr int kSmem = kKeyBytes + kIdxBytes + kWarps * kRadix * 4;
+};
 
 __device__ __forceinline__ unsigned digit_of(int64_t key, int shift) {
   return (unsigned)(((unsigned long long)key >> shift) & (kRadix - 1));
 }
 
-// W: words per row; `word` is the word whose digit this pass sorts by
-template <int W>
-__global__ void histogram_kernel(const int64_t* __restrict__ keys, int64_t n,
-                                 int word, int shift,
-                                 uint32_t* __restrict__ counts, int nblocks) {
-  __shared__ uint32_t hist[kRadix];
-  hist[threadIdx.x] = 0;
-  __syncthreads();
-  const int64_t base = (int64_t)blockIdx.x * kTile;
-  for (int i = threadIdx.x; i < kTile; i += kThreads) {
-    const int64_t idx = base + i;
-    if (idx < n) atomicAdd(&hist[digit_of(keys[idx * W + word], shift)], 1u);
-  }
-  __syncthreads();
-  counts[(int64_t)threadIdx.x * nblocks + blockIdx.x] = hist[threadIdx.x];
+// Status words. A word carries its count itself: no other memory is
+// published through it, and an aligned 64-bit store is seen whole or not at
+// all. So a volatile load reads all it needs (a batch of them may be in
+// flight at once), and a relaxed store at device scope is enough; a release
+// store or a __threadfence() would only order memory that nobody reads
+// through the flag, and costs the publishing thread a wait.
+__device__ __forceinline__ unsigned long long load_volatile(
+    const unsigned long long* p) {
+  unsigned long long v;
+  asm volatile("ld.volatile.global.u64 %0, [%1];"
+               : "=l"(v) : "l"(p) : "memory");
+  return v;
 }
 
-// One block per digit: exclusive scan of counts[d * nblocks .. + nblocks)
-// in place; totals[d] = the row's sum.
-__global__ void scan_kernel(uint32_t* __restrict__ counts, int nblocks,
-                            uint32_t* __restrict__ totals) {
-  __shared__ uint32_t warp_sums[32];
-  __shared__ uint32_t carry;
-  uint32_t* row = counts + (int64_t)blockIdx.x * nblocks;
+__device__ __forceinline__ void store_relaxed(unsigned long long* p,
+                                              unsigned long long v) {
+  asm volatile("st.relaxed.gpu.global.u64 [%0], %1;"
+               :: "l"(p), "l"(v) : "memory");
+}
+
+// Exclusive sum of v over the block's threads (kThreads of them, all
+// calling); `sums` holds kWarps words of shared scratch, free again after
+// the caller's next __syncthreads.
+__device__ __forceinline__ uint32_t block_exclusive_scan(uint32_t v,
+                                                         uint32_t* sums) {
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
-  const int nwarps = kScanThreads / 32;
-  if (threadIdx.x == 0) carry = 0;
-  __syncthreads();
-  for (int start = 0; start < nblocks; start += kScanThreads) {
-    const int i = start + threadIdx.x;
-    const uint32_t v = i < nblocks ? row[i] : 0u;
-    uint32_t x = v;  // inclusive scan within the warp
+  uint32_t x = v;
 #pragma unroll
-    for (int o = 1; o < 32; o <<= 1) {
-      const uint32_t y = __shfl_up_sync(kFull, x, o);
-      if (lane >= o) x += y;
-    }
-    if (lane == 31) warp_sums[warp] = x;
-    __syncthreads();
-    if (warp == 0) {
-      uint32_t w = lane < nwarps ? warp_sums[lane] : 0u;
-#pragma unroll
-      for (int o = 1; o < 32; o <<= 1) {
-        const uint32_t y = __shfl_up_sync(kFull, w, o);
-        if (lane >= o) w += y;
-      }
-      warp_sums[lane] = w;  // inclusive over warps
-    }
-    __syncthreads();
-    const uint32_t before = warp > 0 ? warp_sums[warp - 1] : 0u;
-    if (i < nblocks) row[i] = carry + before + x - v;
-    __syncthreads();
-    if (threadIdx.x == 0) carry += warp_sums[nwarps - 1];
-    __syncthreads();
+  for (int o = 1; o < 32; o <<= 1) {
+    const uint32_t y = __shfl_up_sync(kFull, x, o);
+    if (lane >= o) x += y;
   }
-  if (threadIdx.x == 0) totals[blockIdx.x] = carry;
+  if (lane == 31) sums[warp] = x;
+  __syncthreads();
+  uint32_t before = 0;
+#pragma unroll
+  for (int w = 0; w < kWarps; ++w) before += w < warp ? sums[w] : 0u;
+  return before + x - v;
 }
 
+// The (word, shift) of every pass, for the histogram kernel.
+struct Digits {
+  int passes;
+  unsigned char word[kMaxPasses];
+  unsigned char shift[kMaxPasses];
+};
+
+// 1. Every pass's digit counts in one read of the (n, W) input.
 template <int W>
-__global__ void scatter_kernel(const int64_t* __restrict__ in,
-                               int64_t* __restrict__ out, int64_t n, int word,
-                               int shift, const uint32_t* __restrict__ counts,
-                               const uint32_t* __restrict__ totals,
-                               int nblocks) {
-  __shared__ uint32_t scan_buf[kRadix];
-  __shared__ uint32_t base[kRadix];          // next output slot per digit
-  __shared__ uint32_t warp_cnt[kWarps][kRadix];
+__global__ void __launch_bounds__(kThreads) histogram_kernel(
+    const int64_t* __restrict__ rows, int64_t n, Digits digits,
+    uint32_t* __restrict__ hist) {
+  __shared__ uint32_t s_hist[kMaxPasses * kRadix];
+  __shared__ int s_word[kMaxPasses];
+  __shared__ int s_shift[kMaxPasses];
+  const int t = threadIdx.x;
+  const int passes = digits.passes;
+  if (t < passes) {
+    s_word[t] = digits.word[t];
+    s_shift[t] = digits.shift[t];
+  }
+  for (int i = t; i < passes * kRadix; i += kThreads) s_hist[i] = 0;
+  __syncthreads();
+  // kHistRows rows per thread per step, all loaded before their counts
+  const int64_t stride = (int64_t)gridDim.x * kThreads * kHistRows;
+  for (int64_t r0 = (int64_t)blockIdx.x * kThreads * kHistRows + t; r0 < n;
+       r0 += stride) {
+    int64_t v[kHistRows][W];
+#pragma unroll
+    for (int u = 0; u < kHistRows; ++u) {
+      const int64_t r = r0 + u * kThreads;
+#pragma unroll
+      for (int c = 0; c < W; ++c) v[u][c] = r < n ? rows[r * W + c] : 0;
+    }
+    for (int p = 0; p < passes; ++p) {
+      const int word = s_word[p];
+      const int shift = s_shift[p];
+#pragma unroll
+      for (int u = 0; u < kHistRows; ++u) {
+        int64_t x = v[u][0];
+#pragma unroll
+        for (int c = 1; c < W; ++c) x = word == c ? v[u][c] : x;
+        if (r0 + u * kThreads < n) {
+          atomicAdd(&s_hist[p * kRadix + digit_of(x, shift)], 1u);
+        }
+      }
+    }
+  }
+  __syncthreads();
+  for (int i = t; i < passes * kRadix; i += kThreads) {
+    if (s_hist[i]) atomicAdd(&hist[i], s_hist[i]);
+  }
+}
+
+// 2. One block per pass: counts -> exclusive digit start offsets, in place.
+__global__ void __launch_bounds__(kThreads) scan_kernel(uint32_t* hist) {
+  __shared__ uint32_t sums[kWarps];
+  uint32_t* row = hist + blockIdx.x * kRadix;
+  row[threadIdx.x] = block_exclusive_scan(row[threadIdx.x], sums);
+}
+
+// 3. One stable 8-bit pass over digit `shift` of the key.
+//    keys_in == nullptr: key = rows[id * W + word], id the index (idx_in[i],
+//    or i where idx_in == nullptr). keys_out / idx_out may be nullptr (not
+//    written); rows_out != nullptr writes the whole rows instead.
+template <bool PAIRS>
+__global__ void __launch_bounds__(kThreads, 2) onesweep_kernel(
+    const int64_t* __restrict__ rows, int W, int word,
+    const int64_t* __restrict__ keys_in, const uint32_t* __restrict__ idx_in,
+    int64_t* __restrict__ keys_out, uint32_t* __restrict__ idx_out,
+    int64_t* __restrict__ rows_out, int64_t n, int shift,
+    const uint32_t* __restrict__ digit_start,
+    unsigned long long* __restrict__ status,
+    uint32_t* __restrict__ tile_counter) {
+  using T = Tile<PAIRS>;
+  constexpr int kItems = T::kItems;
+  extern __shared__ __align__(16) unsigned char smem[];
+  int64_t* s_keys = reinterpret_cast<int64_t*>(smem);
+  uint32_t* s_idx = reinterpret_cast<uint32_t*>(smem + T::kKeyBytes);
+  // [kWarps][kRadix]: digit counts per warp, then each warp's first
+  // position per digit in the reordered tile
+  uint32_t* s_warp =
+      reinterpret_cast<uint32_t*>(smem + T::kKeyBytes + T::kIdxBytes);
+  __shared__ int s_tile;
+  __shared__ int s_gbase[kRadix];   // output position of tile slot 0, by digit
+  __shared__ uint32_t s_sums[kWarps];
+
   const int t = threadIdx.x;
   const int lane = t & 31;
   const int warp = t >> 5;
-
-  // exclusive scan of the 256 digit totals (Hillis-Steele, inclusive, then
-  // shift by one) -> where each digit starts in the output
-  scan_buf[t] = totals[t];
-  __syncthreads();
-  for (int o = 1; o < kRadix; o <<= 1) {
-    const uint32_t add = t >= o ? scan_buf[t - o] : 0u;
-    __syncthreads();
-    scan_buf[t] += add;
-    __syncthreads();
-  }
-  const uint32_t digit_start = scan_buf[t] - totals[t];
-  base[t] = digit_start + counts[(int64_t)t * nblocks + blockIdx.x];
-  for (int w = 0; w < kWarps; ++w) warp_cnt[w][t] = 0;
-  __syncthreads();
-
-  const unsigned lower_lanes = (1u << lane) - 1u;
-  const int64_t tile = (int64_t)blockIdx.x * kTile;
-  for (int round = 0; round < kItems; ++round) {
-    const int64_t idx = tile + (int64_t)round * kThreads + t;
-    const bool valid = idx < n;
-    const int64_t key = valid ? in[idx * W + word] : 0;
-    // out-of-range lanes get a digit no real key has, so they never join
-    // a real key's group
-    const unsigned d = valid ? digit_of(key, shift) : 0xFFFFFFFFu;
-    const unsigned group = __match_any_sync(kFull, d);
-    const unsigned rank = __popc(group & lower_lanes);
-    if (valid && rank == 0) warp_cnt[warp][d] = __popc(group);
-    __syncthreads();
-    if (valid) {
-      uint32_t pos = base[d] + rank;
-      for (int w = 0; w < warp; ++w) pos += warp_cnt[w][d];
-      if (W == 1) {
-        out[pos] = key;
-      } else {
+  if (t == 0) s_tile = (int)atomicAdd(tile_counter, 1u);
 #pragma unroll
-        for (int i = 0; i < W; ++i) out[(int64_t)pos * W + i] = in[idx * W + i];
+  for (int w = 0; w < kWarps; ++w) s_warp[w * kRadix + t] = 0;
+  __syncthreads();
+  const int tile = s_tile;
+  const int64_t tile_base = (int64_t)tile * T::kSize;
+  const int valid = (int)(n - tile_base < T::kSize ? n - tile_base : T::kSize);
+
+  // load: item i of this lane is tile slot first + 32 i
+  const int first = warp * 32 * kItems + lane;
+  int64_t key[kItems];
+  uint32_t idx[PAIRS ? kItems : 1];
+  if (keys_in) {
+#pragma unroll
+    for (int i = 0; i < kItems; ++i) {
+      const int s = first + 32 * i;
+      key[i] = s < valid ? keys_in[tile_base + s] : 0;
+      if constexpr (PAIRS) idx[i] = s < valid ? idx_in[tile_base + s] : 0u;
+    }
+  } else {
+    uint32_t id[kItems];
+#pragma unroll
+    for (int i = 0; i < kItems; ++i) {
+      const int s = first + 32 * i;
+      id[i] = (uint32_t)(tile_base + s);
+      if (idx_in && s < valid) id[i] = idx_in[tile_base + s];
+    }
+#pragma unroll
+    for (int i = 0; i < kItems; ++i) {
+      const int s = first + 32 * i;
+      key[i] = s < valid ? rows[(int64_t)id[i] * W + word] : 0;
+      if constexpr (PAIRS) idx[i] = id[i];
+    }
+  }
+
+  // stable rank within the warp: earlier items, then lower lanes
+  uint32_t rank[kItems];
+  uint32_t* my_warp = s_warp + warp * kRadix;
+  const unsigned lower = (1u << lane) - 1u;
+#pragma unroll
+  for (int i = 0; i < kItems; ++i) {
+    const bool ok = first + 32 * i < valid;
+    // slots past the end get a digit no key has, so they join no group
+    const unsigned d = ok ? digit_of(key[i], shift) : (unsigned)kRadix;
+    const unsigned group = __match_any_sync(kFull, d);
+    const uint32_t base = ok ? my_warp[d] : 0u;
+    __syncwarp();
+    rank[i] = base + __popc(group & lower);
+    if (ok && (group & lower) == 0) my_warp[d] = base + __popc(group);
+    __syncwarp();
+  }
+  __syncthreads();
+
+  // thread t owns digit t: the tile's count, published at once
+  uint32_t count = 0;
+#pragma unroll
+  for (int w = 0; w < kWarps; ++w) {
+    const uint32_t c = s_warp[w * kRadix + t];
+    s_warp[w * kRadix + t] = count;
+    count += c;
+  }
+  unsigned long long* my_status = status + (int64_t)tile * kRadix + t;
+  store_relaxed(my_status, (tile == 0 ? kPrefix : kAggregate) | count);
+  const uint32_t local_start = block_exclusive_scan(count, s_sums);
+#pragma unroll
+  for (int w = 0; w < kWarps; ++w) s_warp[w * kRadix + t] += local_start;
+  __syncthreads();
+
+  // reorder the tile in shared memory by digit (stable)
+#pragma unroll
+  for (int i = 0; i < kItems; ++i) {
+    if (first + 32 * i < valid) {
+      const uint32_t pos = my_warp[digit_of(key[i], shift)] + rank[i];
+      s_keys[pos] = key[i];
+      if constexpr (PAIRS) s_idx[pos] = idx[i];
+    }
+  }
+
+  // decoupled look-back for this digit's prefix over the earlier tiles,
+  // kLookBack status words in flight per step: tiles j, j - 1, ... in
+  // order, summing aggregates up to the first prefix; an unpublished word
+  // restarts the step there
+  uint32_t excl = 0;
+  if (tile > 0) {
+    for (int j = tile - 1, spins = 0;;) {
+      unsigned long long s[kLookBack];
+#pragma unroll
+      for (int u = 0; u < kLookBack; ++u) {
+        s[u] = j - u >= 0
+                   ? load_volatile(status + (int64_t)(j - u) * kRadix + t)
+                   : 0ull;
       }
+      int u = 0;
+      bool done = false;
+#pragma unroll
+      for (; u < kLookBack; ++u) {
+        if (s[u] == 0) break;          // tile j - u has not published yet
+        excl += (uint32_t)(s[u] & kCountMask);
+        if (s[u] & kPrefix) {
+          done = true;
+          break;
+        }
+      }
+      if (done) break;
+      j -= u;
+      // every earlier tile is running, so a wait ends in microseconds; a
+      // fault that breaks that traps (a launch error) instead of hanging
+      if (u == 0 && ++spins > kMaxSpins) __trap();
     }
-    __syncthreads();
-    // thread t owns digit t: advance its slot past this round, clear counts
-    uint32_t sum = 0;
-    for (int w = 0; w < kWarps; ++w) {
-      sum += warp_cnt[w][t];
-      warp_cnt[w][t] = 0;
+    store_relaxed(my_status, kPrefix | (excl + count));
+  }
+  s_gbase[t] = (int)(digit_start[t] + excl) - (int)local_start;
+  __syncthreads();
+
+  // write each digit's run from shared memory; slot s < kSize always, so
+  // the unrolled reads may all be issued before the guards resolve
+#pragma unroll
+  for (int i = 0; i < kItems; ++i) {
+    const int s = t + i * kThreads;
+    const int64_t k = s_keys[s];
+    const int64_t g = (int64_t)s_gbase[digit_of(k, shift)] + s;
+    if constexpr (PAIRS) {
+      const uint32_t id = s_idx[s];
+      if (s < valid) {
+        if (rows_out) {
+          for (int c = 0; c < W; ++c) {
+            rows_out[g * W + c] = c == word ? k : rows[(int64_t)id * W + c];
+          }
+        } else {
+          if (keys_out) keys_out[g] = k;
+          idx_out[g] = id;
+        }
+      }
+    } else {
+      if (s < valid) keys_out[g] = k;
     }
-    base[t] += sum;
-    __syncthreads();
   }
 }
 
-// One 8-bit pass over digit `shift` of word `word`: src -> dst.
+int sm_count() {
+  int dev = 0, sms = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess) return 0;
+  if (cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) !=
+      cudaSuccess)
+    return 0;
+  return sms;
+}
+
+int64_t tiles_of(int64_t n, bool pairs) {
+  const int64_t size = pairs ? Tile<true>::kSize : Tile<false>::kSize;
+  return (n + size - 1) / size;
+}
+
+// Steps 1 and 2 on `rows` ((n, W), W = 1 for keys).
 template <int W>
-int radix_pass(const int64_t* src, int64_t* dst, uint32_t* counts,
-               uint32_t* totals, int64_t n, int nblocks, int word, int shift,
-               cudaStream_t s) {
-  histogram_kernel<W><<<nblocks, kThreads, 0, s>>>(src, n, word, shift,
-                                                   counts, nblocks);
-  int err = (int)cudaGetLastError();
+int histograms(const int64_t* rows, int64_t n, const int* plan, int passes,
+               uint32_t* hist, cudaStream_t s) {
+  Digits digits;
+  digits.passes = passes;
+  for (int p = 0; p < passes; ++p) {
+    digits.word[p] = (unsigned char)plan[p * kPlanCols];
+    digits.shift[p] = (unsigned char)plan[p * kPlanCols + 1];
+  }
+  int err = (int)cudaMemsetAsync(hist, 0, sizeof(uint32_t) * passes * kRadix,
+                                 s);
   if (err) return err;
-  scan_kernel<<<kRadix, kScanThreads, 0, s>>>(counts, nblocks, totals);
+  const int sms = sm_count();
+  if (sms <= 0) return (int)cudaErrorInvalidDevice;
+  const int64_t want = (n + kThreads * kHistRows - 1) / (kThreads * kHistRows);
+  const int64_t most = (int64_t)sms * kHistBlocksPerSM;
+  const int grid = (int)(want < most ? want : most);
+  histogram_kernel<W><<<grid, kThreads, 0, s>>>(rows, n, digits, hist);
   err = (int)cudaGetLastError();
   if (err) return err;
-  scatter_kernel<W><<<nblocks, kThreads, 0, s>>>(src, dst, n, word, shift,
-                                                 counts, totals, nblocks);
+  scan_kernel<<<passes, kThreads, 0, s>>>(hist);
   return (int)cudaGetLastError();
 }
 
-// Passes over the words from the last to the first: `last_bits` bits of
-// the last word, 62 of every other one. Pass p writes buf0 (p even) or
-// buf1 (p odd).
-template <int W>
-int sort_rows(const void* keys_in, void* buf0, void* buf1, void* counts,
-              void* totals, int64_t n, int last_bits, cudaStream_t s) {
-  const int nblocks = (int)((n + kTile - 1) / kTile);
-  const int64_t* src = (const int64_t*)keys_in;
-  int p = 0;
-  for (int word = W - 1; word >= 0; --word) {
-    const int bits = word == W - 1 ? last_bits : 62;
-    const int passes = (bits + kRadixBits - 1) / kRadixBits;
-    for (int q = 0; q < passes; ++q, ++p) {
-      int64_t* dst = (int64_t*)((p % 2 == 0) ? buf0 : buf1);
-      const int err = radix_pass<W>(src, dst, (uint32_t*)counts,
-                                    (uint32_t*)totals, n, nblocks, word,
-                                    q * kRadixBits, s);
-      if (err) return err;
-      src = dst;
-    }
+// The whole sort. `plan` is the pass plan in host memory; `keys` / `idx`
+// are the two ping-pong buffers of each (idx unused for keys).
+template <bool PAIRS, int W>
+int sort(const int64_t* rows, int64_t n, const int* plan, int passes,
+         int64_t* const keys[2], uint32_t* const idx[2],
+         int64_t* rows_out, uint32_t* hist, unsigned long long* status,
+         cudaStream_t s) {
+  if (passes < 1 || passes > kMaxPasses) return (int)cudaErrorInvalidValue;
+  int err = histograms<W>(rows, n, plan, passes, hist, s);
+  if (err) return err;
+  using T = Tile<PAIRS>;
+  err = (int)cudaFuncSetAttribute(onesweep_kernel<PAIRS>,
+                                  cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                  T::kSmem);
+  if (err) return err;
+  const int64_t tiles = tiles_of(n, PAIRS);
+  // the tile counter sits after the status words
+  uint32_t* counter = reinterpret_cast<uint32_t*>(status + tiles * kRadix);
+  const size_t status_bytes =
+      sizeof(unsigned long long) * (tiles * kRadix + 1);
+  for (int p = 0; p < passes; ++p) {
+    const int* row = plan + p * kPlanCols;
+    const int word = row[0], shift = row[1], key_src = row[2];
+    const int idx_src = row[3], dst = row[4], flags = row[5];
+    err = (int)cudaMemsetAsync(status, 0, status_bytes, s);
+    if (err) return err;
+    onesweep_kernel<PAIRS><<<(unsigned)tiles, kThreads, T::kSmem, s>>>(
+        rows, W, word, key_src < 0 ? nullptr : keys[key_src],
+        PAIRS && idx_src >= 0 ? idx[idx_src] : nullptr,
+        flags & kWriteKeys ? keys[dst] : nullptr,
+        PAIRS && !(flags & kWriteRows) ? idx[dst] : nullptr,
+        flags & kWriteRows ? rows_out : nullptr, n, shift,
+        hist + p * kRadix, status, counter);
+    err = (int)cudaGetLastError();
+    if (err) return err;
   }
   return 0;
 }
 
 }  // namespace
 
-extern "C" int rfx_radix_sort_blocks(int64_t n) {
-  return (int)((n + kTile - 1) / kTile);
+// Elements per onesweep tile (pairs != 0: the row sort's (key, index)
+// tiles); the status scratch holds ceil(n / tile) * 256 + 1 int64.
+extern "C" int rfx_radix_sort_tile(int pairs) {
+  return pairs ? Tile<true>::kSize : Tile<false>::kSize;
 }
 
-// (n, W) int64 rows, 2 <= W <= 4, sorted lexicographically over the words;
-// `last_bits` significant bits in the last word, 62 in the others. The
-// sorted rows end in buf[(P - 1) % 2], P the total pass count; scratch as
-// for rfx_radix_sort_keys.
-extern "C" int rfx_radix_sort_rows(const void* keys_in, void* buf0, void* buf1,
-                                   void* counts, void* totals, int64_t n,
-                                   int W, int last_bits, void* stream) {
+// keys_in: (n,) int64, read only. plan: the pass plan, `passes` rows of
+// kPlanCols int32 in host memory. buf0, buf1: (n,)
+// int64; the sorted keys end in buf0. hist: passes * 256 uint32; status:
+// ceil(n / rfx_radix_sort_tile(0)) * 256 + 1 int64.
+extern "C" int rfx_radix_sort_keys(const void* keys_in, void* buf0, void* buf1,
+                                   void* hist, void* status, int64_t n,
+                                   const void* plan, int passes,
+                                   void* stream) {
   if (n <= 0) return 0;
+  int64_t* const keys[2] = {(int64_t*)buf0, (int64_t*)buf1};
+  uint32_t* const idx[2] = {nullptr, nullptr};
+  return sort<false, 1>((const int64_t*)keys_in, n, (const int*)plan,
+                        passes, keys, idx, nullptr,
+                        (uint32_t*)hist, (unsigned long long*)status,
+                        (cudaStream_t)stream);
+}
+
+// rows_in: (n, W) int64, 2 <= W <= 4, read only. keys0/keys1: (n,) int64,
+// idx0/idx1: (n,) uint32 scratch; out: (n, W) int64, the sorted rows. hist:
+// passes * 256 uint32; status: ceil(n / rfx_radix_sort_tile(1)) * 256 + 1
+// int64.
+extern "C" int rfx_radix_sort_rows(const void* rows_in, void* keys0,
+                                   void* keys1, void* idx0, void* idx1,
+                                   void* out, void* hist, void* status,
+                                   int64_t n, int W, const void* plan,
+                                   int passes, void* stream) {
+  if (n <= 0) return 0;
+  int64_t* const keys[2] = {(int64_t*)keys0, (int64_t*)keys1};
+  uint32_t* const idx[2] = {(uint32_t*)idx0, (uint32_t*)idx1};
+  const int64_t* rows = (const int64_t*)rows_in;
+  const int* p = (const int*)plan;
+  uint32_t* h = (uint32_t*)hist;
+  unsigned long long* st = (unsigned long long*)status;
   cudaStream_t s = (cudaStream_t)stream;
   switch (W) {
     case 2:
-      return sort_rows<2>(keys_in, buf0, buf1, counts, totals, n, last_bits, s);
+      return sort<true, 2>(rows, n, p, passes, keys, idx, (int64_t*)out,
+                           h, st, s);
     case 3:
-      return sort_rows<3>(keys_in, buf0, buf1, counts, totals, n, last_bits, s);
+      return sort<true, 3>(rows, n, p, passes, keys, idx, (int64_t*)out,
+                           h, st, s);
     case 4:
-      return sort_rows<4>(keys_in, buf0, buf1, counts, totals, n, last_bits, s);
+      return sort<true, 4>(rows, n, p, passes, keys, idx, (int64_t*)out,
+                           h, st, s);
     default:
       return (int)cudaErrorInvalidValue;
   }
-}
-
-// keys_in is read only; pass p writes buf0 (p even) or buf1 (p odd), so the
-// sorted keys end in buf[(passes - 1) % 2]. counts holds 256 * nblocks and
-// totals 256 uint32 of scratch.
-extern "C" int rfx_radix_sort_keys(const void* keys_in, void* buf0, void* buf1,
-                                   void* counts, void* totals, int64_t n,
-                                   int bits, void* stream) {
-  if (n <= 0) return 0;
-  return sort_rows<1>(keys_in, buf0, buf1, counts, totals, n, bits,
-                      (cudaStream_t)stream);
 }

@@ -404,7 +404,7 @@ def dynamic_reduction(params: Params, *, seed: int = 0, device,
 
 
 def _write_sorted_set(directory: str, triple: Triple, k: int, *,
-                      device="cpu") -> int:
+                      device) -> int:
     """Write ``KMERSTRING,1|left|right`` rows (the sorted/reduced format,
     ``DSBinaryFullKmerArrayToString``, LeftAndRightSorting ``:246-326``)
     + _SUCCESS, formatted on ``device``; the same bytes as

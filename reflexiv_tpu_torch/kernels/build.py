@@ -36,25 +36,27 @@ _P = ctypes.c_void_p
 _I64 = ctypes.c_int64
 _I32 = ctypes.c_int
 # C signatures of the kernels' launchers; the launchers return
-# cudaGetLastError() (0 on success)
+# cudaGetLastError() (0 on success), the tile query a size
 _SIGNATURES = {
     # (bases, lengths, out, R, L, k, front_clip, end_clip, stream)
     "rfx_extract_canonical_keys": [_P, _P, _P, _I64, _I64, _I32, _I32, _I32, _P],
     "rfx_extract_canonical_rows": [_P, _P, _P, _I64, _I64, _I32, _I32, _I32, _P],
-    # (keys_in, buf0, buf1, block_counts, digit_totals, n, bits, stream)
-    "rfx_radix_sort_keys": [_P, _P, _P, _P, _P, _I64, _I32, _P],
-    # (rows_in, buf0, buf1, block_counts, digit_totals, n, W, last_bits,
-    #  stream)
-    "rfx_radix_sort_rows": [_P, _P, _P, _P, _P, _I64, _I32, _I32, _P],
+    # (keys_in, buf0, buf1, hist, status, n, plan (host), passes, stream)
+    "rfx_radix_sort_keys": [_P, _P, _P, _P, _P, _I64, _P, _I32, _P],
+    # (rows_in, keys0, keys1, idx0, idx1, out, hist, status, n, W,
+    #  plan (host), passes, stream)
+    "rfx_radix_sort_rows": [_P, _P, _P, _P, _P, _P, _P, _P, _I64, _I32, _P,
+                            _I32, _P],
     # (hi, lo, starts, out_hi, out_lo, nb, block, slot, stream)
     "rfx_padded_exchange": [_P, _P, _P, _P, _P, _I64, _I64, _I64, _P],
     # (src, tile_starts, out, n_tiles, stream)
     "rfx_tile_gather": [_P, _P, _P, _I64, _P],
-    # (n) -> number of tiles, the rows of block_counts
-    "rfx_radix_sort_blocks": [_I64],
+    # (pairs) -> elements per onesweep tile of the radix sort
+    "rfx_radix_sort_tile": [_I32],
 }
 
 _lib: Optional[ctypes.CDLL] = None
+_one_card: Optional[bool] = None   # set at the first launch
 last_build_seconds: float = 0.0   # 0.0 when the library came from the cache
 
 
@@ -132,7 +134,10 @@ def lib() -> ctypes.CDLL:
     """The loaded kernel library (built on first call)."""
     global _lib
     if _lib is None:
-        handle = ctypes.CDLL(build())
+        # PyDLL keeps the GIL across the call: the launchers only enqueue
+        # work and return, and releasing and taking the GIL back would
+        # cost a small kernel's call more host time than the launch
+        handle = ctypes.PyDLL(build())
         for name, argtypes in _SIGNATURES.items():
             fn = getattr(handle, name)
             fn.argtypes = argtypes
@@ -141,7 +146,29 @@ def lib() -> ctypes.CDLL:
     return _lib
 
 
-def check(err: int, what: str) -> None:
-    """Raise if a launcher returned a CUDA error code."""
+def launch(name: str, device, *args) -> None:
+    """Call launcher ``name`` with ``args`` and ``device``'s current stream
+    (its last argument), with ``device`` current; raise on its CUDA error
+    code.
+
+    Kept cheap on the host, where a 10 us kernel's call is decided: the raw
+    stream handle (``torch._C._cuda_getCurrentRawStream``, as PyTorch's own
+    generated kernels take it) costs 0.1 us where building a
+    ``torch.cuda.Stream`` costs about 5 (scripts/torch_kernel_profile.py on
+    the H100's host, PERF.md); the device switch happens only where ``device``
+    is not current, and a machine with one card has nothing to switch."""
+    global _one_card
+    import torch
+
+    fn = getattr(lib(), name)
+    if _one_card is None:
+        _one_card = torch.cuda.device_count() == 1
+    current = 0 if _one_card else torch.cuda.current_device()
+    index = current if device.index is None else device.index
+    if index == current:
+        err = fn(*args, torch._C._cuda_getCurrentRawStream(index))
+    else:
+        with torch.cuda.device(index):
+            err = fn(*args, torch._C._cuda_getCurrentRawStream(index))
     if err != 0:
-        raise RuntimeError(f"{what}: CUDA error {err}")
+        raise RuntimeError(f"{name}: CUDA error {err}")

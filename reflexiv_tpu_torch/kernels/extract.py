@@ -15,6 +15,7 @@ import torch
 
 from ..bitpack import (MAX_K, RUN_MAX_K, BASES_PER_WORD, canonical_keys,
                        canonical_rows, check_k, num_words, poly_t, word_bases)
+from . import build
 
 LAUNCHES = 0       # kernel launches by extract_canonical_keys (one word)
 ROW_LAUNCHES = {}  # kernel launches by extract_canonical_rows, by W
@@ -153,15 +154,9 @@ def _launch(fn, bases, lengths, k, front_clip, end_clip, word_shape):
         raise ValueError(f"lengths shape {tuple(lengths.shape)} != ({R},)")
     if front_clip < 0 or end_clip < 0:
         raise ValueError("clips must be >= 0")
-    from . import build
-
     wn = L - k + 1
     out = torch.empty((R * wn,) + word_shape, dtype=torch.int64,
                       device=bases.device)
-    with torch.cuda.device(bases.device):
-        stream = torch.cuda.current_stream(bases.device).cuda_stream
-        err = getattr(build.lib(), fn)(
-            bases.data_ptr(), lengths.data_ptr(), out.data_ptr(),
-            R, L, k, front_clip, end_clip, stream)
-    build.check(err, fn)
+    build.launch(fn, bases.device, bases.data_ptr(), lengths.data_ptr(),
+                 out.data_ptr(), R, L, k, front_clip, end_clip)
     return out

@@ -19,6 +19,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from . import build
+
 N_DIGITS = 256
 TILE = 1024   # copy alignment: the TPU's 1-D tiling, kept as the layout
 
@@ -34,13 +36,13 @@ def slot_size(maxrun: int) -> int:
 
 
 def _check_words(*arrays) -> None:
+    dev = arrays[0].device
     for a in arrays:
         if a.dtype != torch.int32 or a.dim() != 1:
             raise TypeError(f"need 1-D int32 tensors, got {a.dtype} "
                             f"{tuple(a.shape)}")
-    dev = arrays[0].device
-    if any(a.device != dev for a in arrays):
-        raise ValueError("all tensors must be on one device")
+        if a.device != dev:
+            raise ValueError("all tensors must be on one device")
 
 
 def _exchange_geometry(hi_g, lo_g, starts, block, maxrun, check=True):
@@ -112,19 +114,14 @@ def padded_exchange(hi_g, lo_g, starts, *, block: int, maxrun: int,
                                      maxrun=maxrun)
     if hi_g.device.type != "cuda":
         raise ValueError(f"tensors on {hi_g.device}: need CUDA or CPU")
-    from . import build
-
     hi_s, lo_s = _with_slack(hi_g.contiguous()), _with_slack(lo_g.contiguous())
     starts = starts.contiguous()
     out_hi = torch.empty(N_DIGITS * nb * slot, dtype=torch.int32,
                          device=hi_g.device)
     out_lo = torch.empty_like(out_hi)
-    with torch.cuda.device(hi_g.device):
-        stream = torch.cuda.current_stream(hi_g.device).cuda_stream
-        err = build.lib().rfx_padded_exchange(
-            hi_s.data_ptr(), lo_s.data_ptr(), starts.data_ptr(),
-            out_hi.data_ptr(), out_lo.data_ptr(), nb, block, slot, stream)
-    build.check(err, "rfx_padded_exchange")
+    build.launch("rfx_padded_exchange", hi_g.device, hi_s.data_ptr(),
+                 lo_s.data_ptr(), starts.data_ptr(), out_hi.data_ptr(),
+                 out_lo.data_ptr(), nb, block, slot)
     EXCHANGE_LAUNCHES += 1
     return out_hi, out_lo
 
@@ -164,20 +161,18 @@ def tile_gather(src: torch.Tensor, tile_starts: torch.Tensor, *,
     :func:`tile_gather_torch`."""
     global GATHER_LAUNCHES
     _check_tiles(src, tile_starts, check)
-    if src.device.type == "cpu":
+    dev = src.device
+    if dev.type == "cpu":
         return tile_gather_torch(src, tile_starts)
-    if src.device.type != "cuda":
-        raise ValueError(f"tensors on {src.device}: need CUDA or CPU")
-    from . import build
-
-    src, tile_starts = src.contiguous(), tile_starts.contiguous()
+    if dev.type != "cuda":
+        raise ValueError(f"tensors on {dev}: need CUDA or CPU")
+    if not (src.is_contiguous() and tile_starts.is_contiguous()):
+        raise ValueError("src and tile_starts must be contiguous")
+    if src.data_ptr() % 16:
+        raise ValueError("src must start 16-byte aligned (16-byte copies)")
     n_tiles = tile_starts.shape[0]
-    out = torch.empty(n_tiles * TILE, dtype=torch.int32, device=src.device)
-    with torch.cuda.device(src.device):
-        stream = torch.cuda.current_stream(src.device).cuda_stream
-        err = build.lib().rfx_tile_gather(
-            src.data_ptr(), tile_starts.data_ptr(), out.data_ptr(), n_tiles,
-            stream)
-    build.check(err, "rfx_tile_gather")
+    out = torch.empty(n_tiles * TILE, dtype=torch.int32, device=dev)
+    build.launch("rfx_tile_gather", dev, src.data_ptr(),
+                 tile_starts.data_ptr(), out.data_ptr(), n_tiles)
     GATHER_LAUNCHES += 1
     return out

@@ -118,7 +118,7 @@ def write_blocks(fh, blocks: Iterator[bytes], *, gzip_level: int = 0) -> int:
     return n
 
 
-def write_rows(fh, codes, columns, *, device="cpu") -> int:
+def write_rows(fh, codes, columns, *, device) -> int:
     """Write :func:`csv_bytes` rows block by block, formatted on ``device``
     (``codes`` and the integer columns are numpy arrays or tensors; a
     block is moved to ``device`` whole). Returns the bytes of text."""

@@ -79,6 +79,74 @@ def test_sort_wrapper_rejects_bad_arguments():
             torch.zeros(8, dtype=torch.int64, device="meta"), bits=8)
 
 
+def test_sort_wrappers_refuse_more_keys_than_the_offsets_hold():
+    n = radix_sort.MAX_N + 1
+    with pytest.raises(ValueError, match="bound"):
+        radix_sort.sort_keys(torch.empty(n, dtype=torch.int64, device="meta"),
+                             bits=62)
+    with pytest.raises(ValueError, match="bound"):
+        radix_sort.sort_rows(
+            torch.empty((n, 2), dtype=torch.int64, device="meta"),
+            last_bits=62)
+
+
+def _play_plan(rows, plan):
+    """Run a pass plan with numpy stable sorts and two buffers each of keys
+    and indices, as the kernel does; a pass may read only what the pass
+    before it wrote."""
+    n, W = rows.shape
+    keys, idx, out = [None, None], [None, None], None
+    wrote = {}
+    for p, (word, shift, key_src, idx_src, dst, flags) in enumerate(plan):
+        if idx_src < 0:
+            ids = np.arange(n)
+        else:
+            assert wrote.get(("idx", idx_src)) == p - 1
+            ids = idx[idx_src]
+        if key_src < 0:
+            key = rows[ids, word]
+        else:
+            assert wrote.get(("key", key_src)) == p - 1
+            key = keys[key_src]
+        order = np.argsort((key >> shift) & 255, kind="stable")
+        if flags & radix_sort.WRITE_ROWS:
+            assert p == len(plan) - 1
+            out = rows[ids[order]]
+            continue
+        if flags & radix_sort.WRITE_KEYS:
+            keys[dst], wrote[("key", dst)] = key[order], p
+        if W > 1:
+            idx[dst], wrote[("idx", dst)] = ids[order], p
+    if W == 1:
+        assert wrote[("key", 0)] == len(plan) - 1   # the result buffer
+        return keys[0][:, None]
+    return out
+
+
+@pytest.mark.parametrize("W", [1, 2, 3, 4])
+def test_pass_plan_sorts_for_every_bit_width(W):
+    """Every bits in 1-63 (keys) and every last_bits in 1-62 (W words):
+    the plan has ceil(bits / 8) passes per word, its last pass writes the
+    result (buffer 0, or the rows), and played pass by pass it sorts."""
+    rng = np.random.default_rng(W)
+    for last in range(1, 64 if W == 1 else 63):
+        plan = radix_sort.pass_plan(W, last)
+        assert len(plan) == 8 * (W - 1) + -(-last // 8)
+        assert plan.dtype == np.int32 and plan.shape[1] == 6
+        assert plan[-1, 4] == 0
+        rows = rng.integers(0, 1 << 62, (300, W), dtype=np.int64)
+        rows[:, -1] &= (1 << last) - 1
+        rows[::3, :-1] = rows[0, :-1]          # ties on the leading words
+        want = rows[np.lexsort(rows.T[::-1])]
+        np.testing.assert_array_equal(_play_plan(rows, plan), want)
+
+
+def test_pass_plan_rejects_what_the_kernel_cannot_take():
+    for W, last in ((0, 8), (5, 8), (1, 0), (1, 64), (2, 63), (4, 0)):
+        with pytest.raises(ValueError):
+            radix_sort.pass_plan(W, last)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("k,front_clip,end_clip",
                          [(31, 0, 0), (21, 3, 2), (17, 0, 5), (1, 0, 0)])
@@ -106,6 +174,42 @@ def test_sort_kernel_matches_plain(k, n):
     got = radix_sort.sort_keys(keys.to(dev), bits=2 * k)
     torch.cuda.synchronize()
     assert radix_sort.LAUNCHES == before + 1
+    assert torch.equal(got.cpu(), radix_sort.sort_keys_torch(keys))
+
+
+def _sort_tile(pairs):
+    from reflexiv_tpu_torch.kernels import build
+
+    return build.lib().rfx_radix_sort_tile(pairs)
+
+
+def _few_digit_values(n, seed):
+    """Keys whose every byte takes one of three values: each pass moves
+    long runs of equal digits, so an unstable pass scrambles the order the
+    earlier passes made."""
+    rng = np.random.default_rng(seed)
+    vals = np.array([0x00, 0x01, 0x3F], np.int64)
+    keys = np.zeros(n, np.int64)
+    for b in range(8):
+        keys |= vals[rng.integers(0, 3, n)] << (8 * b)
+    return torch.from_numpy(keys)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["few_digit_values", "all_equal"])
+@pytest.mark.parametrize("at", ["1", "tile-1", "tile", "tile+1",
+                                "5tiles+1"])
+def test_sort_kernel_tile_edges(case, at):
+    dev = _card()
+    tile = _sort_tile(0)
+    n = {"1": 1, "tile-1": tile - 1, "tile": tile, "tile+1": tile + 1,
+         "5tiles+1": 5 * tile + 1}[at]
+    if case == "all_equal":
+        keys = torch.full((n,), (1 << 61) + 12345, dtype=torch.int64)
+    else:
+        keys = _few_digit_values(n, seed=n)
+    got = radix_sort.sort_keys(keys.to(dev), bits=62)
+    torch.cuda.synchronize()
     assert torch.equal(got.cpu(), radix_sort.sort_keys_torch(keys))
 
 
@@ -202,6 +306,33 @@ def test_sort_rows_kernel_matches_plain(k, n):
     assert torch.equal(got.cpu(), radix_sort.sort_rows_torch(rows))
 
 
+def _tied_rows(W, n, seed):
+    """Rows equal on every word but the last in long runs, rows that differ
+    only in the first word, and poly-T sentinel rows."""
+    rng = np.random.default_rng(seed)
+    k = 31 * (W - 1) + 20
+    rows = np.repeat(rng.integers(0, 1 << 62, (7, W), dtype=np.int64),
+                     -(-n // 7), axis=0)[:n]
+    rows[:, -1] = rng.integers(0, 3, n) << 37          # the last word
+    rows[1::5, 0] = rng.integers(0, 2, rows[1::5].shape[0])
+    rows[rng.random(n) < 0.2] = ext.sentinel(k)
+    return torch.from_numpy(rows[rng.permutation(n)]), 40
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("W", [2, 3, 4])
+@pytest.mark.parametrize("at", ["1", "tile-1", "tile+1", "5tiles+1"])
+def test_sort_rows_kernel_ties_and_sentinels(W, at):
+    dev = _card()
+    tile = _sort_tile(1)
+    n = {"1": 1, "tile-1": tile - 1, "tile+1": tile + 1,
+         "5tiles+1": 5 * tile + 1}[at]
+    rows, last_bits = _tied_rows(W, n, seed=W * n)
+    got = radix_sort.sort_rows(rows.to(dev), last_bits=last_bits)
+    torch.cuda.synchronize()
+    assert torch.equal(got.cpu(), radix_sort.sort_rows_torch(rows))
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("block,nb,maxrun", [(1 << 16, 16, 1024),
                                              (4096, 8, 1001),
@@ -220,15 +351,20 @@ def test_padded_exchange_kernel_matches_plain(block, nb, maxrun):
 
 
 @pytest.mark.cuda
-def test_tile_gather_kernel_matches_plain():
+@pytest.mark.parametrize("tiles,repeated", [(4096, False), (65_536, False),
+                                            (65_536, True), (1024, True)])
+def test_tile_gather_kernel_matches_plain(tiles, repeated):
     dev = _card()
-    rng = np.random.default_rng(5)
+    rng = np.random.default_rng(tiles + repeated)
     src = torch.from_numpy(rng.integers(0, 1 << 32, 1 << 20, dtype=np.uint32)
                            .view(np.int32))
+    pick = rng.integers(0, 1023, 8 if repeated else tiles)
     starts = torch.from_numpy(
-        (rng.integers(0, 1023, 4096) * 1024).astype(np.int32))
+        (pick[rng.integers(0, len(pick), tiles)] if repeated else pick)
+        .astype(np.int32) * 1024)
     before = partition.GATHER_LAUNCHES
     got = partition.tile_gather(src.to(dev), starts.to(dev))
     torch.cuda.synchronize()
     assert partition.GATHER_LAUNCHES == before + 1
     assert torch.equal(got.cpu(), partition.tile_gather_torch(src, starts))
+
