@@ -37,8 +37,8 @@ script. Phases, one line each:
 
 Phases 2 and 3 also hold the W-word extraction and row sort (k = 61, 81
 and 95: W = 2, 3 and 4 words) to their plain versions on the main path's
-read matrix. Each sort line gives the design traffic of its pass plan and
-the rate it reached.
+read matrix. Each extraction and sort line gives its design traffic and
+the rate it reached; each extraction line also its share of the bound.
 
 Tolerance: every comparison is exact (integer keys, equal contig lists,
 equal files). The line before the last is the kernels' JSON record; the
@@ -239,6 +239,20 @@ def main(argv=None) -> int:
 
     # 2. extraction, kernel vs plain
     rows, bounds, library = {}, {}, {}
+
+    def extract_line(label, k, ms, pms):
+        """Phase 2's figures: design traffic (each code byte and length
+        read once, 8 W bytes written per window), its rate and the share
+        of the bound the kernel reached."""
+        W, wins = num_words(k), n_reads * (READ_LEN - k + 1)
+        traffic = n_reads * (READ_LEN + 4) + 8 * W * wins
+        bound = bound_ms(traffic, 8 * W * wins)
+        say(f"phase 2 {label}: {wins} x {W} words, equal; kernel {ms:.3f} "
+            f"ms, plain {pms:.3f} ms; design traffic {traffic / 1e9:.3f} GB,"
+            f" {traffic / ms / 1e6:.1f} GB/s; bound {bound[0]:.3f} ms, "
+            f"{bound[0] / ms:.0%} of it")
+        return bound
+
     for k, fc, ec in ((31, 0, 0), (21, 3, 2)):
         err, ms, pms = compare(
             torch, f"extract k={k}",
@@ -246,26 +260,19 @@ def main(argv=None) -> int:
                 bases, lens, k=k, front_clip=fc, end_clip=ec),
             lambda: extract.extract_canonical_keys_torch(
                 bases, lens, k=k, front_clip=fc, end_clip=ec))
-        say(f"phase 2 extract k={k} clips={fc}/{ec}: {n_reads}x{READ_LEN} "
-            f"-> {n_reads * (READ_LEN - k + 1)} keys, equal; kernel "
-            f"{ms:.3f} ms, plain {pms:.3f} ms")
+        bound = extract_line(f"extract k={k} clips={fc}/{ec}", k, ms, pms)
         if k == 31:
             rows["extract"] = (err, ms, pms)
-            wins = n_reads * (READ_LEN - k + 1)
-            bounds["extract"] = bound_ms(
-                n_reads * (READ_LEN + 4) + 8 * wins, 8 * wins)
+            bounds["extract"] = bound
     for k in ROW_KS:
         W = num_words(k)
         err, ms, pms = compare(
             torch, f"extract rows k={k}",
             lambda: extract.extract_canonical_rows(bases, lens, k=k),
             lambda: extract.extract_canonical_rows_torch(bases, lens, k=k))
-        wins = n_reads * (READ_LEN - k + 1)
-        say(f"phase 2 extract rows k={k} (W={W}): {wins} x {W} words, "
-            f"equal; kernel {ms:.3f} ms, plain {pms:.3f} ms")
         rows[f"extract_rows{W}"] = (err, ms, pms)
-        bounds[f"extract_rows{W}"] = bound_ms(
-            n_reads * (READ_LEN + 4) + 8 * W * wins, 8 * W * wins)
+        bounds[f"extract_rows{W}"] = extract_line(
+            f"extract rows k={k} (W={W})", k, ms, pms)
 
     # 3. radix sort, kernel vs torch.sort
     keys31 = extract.extract_canonical_keys(bases, lens, k=31)

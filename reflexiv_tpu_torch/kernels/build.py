@@ -38,9 +38,12 @@ _I32 = ctypes.c_int
 # C signatures of the kernels' launchers; the launchers return
 # cudaGetLastError() (0 on success), the tile query a size
 _SIGNATURES = {
-    # (bases, lengths, out, R, L, k, front_clip, end_clip, stream)
-    "rfx_extract_canonical_keys": [_P, _P, _P, _I64, _I64, _I32, _I32, _I32, _P],
-    "rfx_extract_canonical_rows": [_P, _P, _P, _I64, _I64, _I32, _I32, _I32, _P],
+    # (bases, lengths, out, R, L, k, front_clip, end_clip, reads, windows,
+    #  smem_bytes, stream)
+    "rfx_extract_canonical_keys": [_P, _P, _P, _I64, _I64, _I32, _I32, _I32,
+                                   _I32, _I32, _I32, _P],
+    "rfx_extract_canonical_rows": [_P, _P, _P, _I64, _I64, _I32, _I32, _I32,
+                                   _I32, _I32, _I32, _P],
     # (keys_in, buf0, buf1, hist, status, n, plan (host), passes, stream)
     "rfx_radix_sort_keys": [_P, _P, _P, _P, _P, _I64, _P, _I32, _P],
     # (rows_in, keys0, keys1, idx0, idx1, out, hist, status, n, W,

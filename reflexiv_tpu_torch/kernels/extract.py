@@ -8,8 +8,18 @@ windows set to poly-T (:func:`sentinel`). k <= 31 takes
 :func:`extract_canonical_keys` (one int64 per window); 32 <= k <= 99 takes
 :func:`extract_canonical_rows` (``W = ceil(k/31)`` int64 words per window,
 the layout of ``bitpack``).
+
+Codes are 0..3 (A, C, G, T), as ``bitpack.encode_ascii`` makes them; the
+kernel reads only the low two bits of each byte.
+
+The kernel packs each CTA's reads once into shared memory and cuts every
+key from the packed streams; :func:`launch_geometry` picks how many reads
+a CTA takes (or, for rows longer than :data:`STAGE_BASES`, how many
+windows of one read) and the shared memory that needs.
 """
 from __future__ import annotations
+
+from typing import NamedTuple
 
 import torch
 
@@ -19,6 +29,39 @@ from . import build
 
 LAUNCHES = 0       # kernel launches by extract_canonical_keys (one word)
 ROW_LAUNCHES = {}  # kernel launches by extract_canonical_rows, by W
+
+THREADS = 256          # per CTA (csrc/extract_kmers.cu kThreads)
+STAGE_BASES = 16384    # code bytes a CTA stages at most (about 8 KB packed)
+MAX_READS = 1024       # reads per CTA at most (8 KB of window bounds)
+
+
+class Geometry(NamedTuple):
+    reads: int        # reads per CTA (1 where a row is split)
+    windows: int      # windows per read per CTA (L - k + 1 unless split)
+    ctas_per_read: int
+    smem_bytes: int   # dynamic shared memory per CTA
+
+
+def launch_geometry(L: int, k: int) -> Geometry:
+    """The kernel's launch shape for rows of ``L`` bases at ``k``: whole
+    reads per CTA, as many as fit in :data:`STAGE_BASES` bytes (at most
+    :data:`MAX_READS`), or, for a
+    longer row, ``STAGE_BASES - k + 1`` windows of one read per CTA. Shared
+    memory: the two packed streams of the span (16 bases per uint32, at
+    any 16-byte offset, two zero words after each), 8 bytes of window
+    bounds per read, and for W >= 2 the warps' output stages. The launcher
+    recomputes the size and refuses a launch that it would not hold."""
+    W = num_words(k)
+    wn = L - k + 1
+    if L <= STAGE_BASES:
+        reads, windows = min(STAGE_BASES // L, MAX_READS), wn
+        span = reads * L
+    else:
+        reads, windows = 1, STAGE_BASES - k + 1
+        span = STAGE_BASES
+    smem = (8 * ((span + 30) // 16 + 2) + 8 * reads
+            + (8 * THREADS * W if W > 1 else 0))
+    return Geometry(reads, windows, -(-wn // windows), smem)
 
 
 def sentinel(k: int):
@@ -157,6 +200,8 @@ def _launch(fn, bases, lengths, k, front_clip, end_clip, word_shape):
     wn = L - k + 1
     out = torch.empty((R * wn,) + word_shape, dtype=torch.int64,
                       device=bases.device)
+    geo = launch_geometry(L, k)
     build.launch(fn, bases.device, bases.data_ptr(), lengths.data_ptr(),
-                 out.data_ptr(), R, L, k, front_clip, end_clip)
+                 out.data_ptr(), R, L, k, front_clip, end_clip, geo.reads,
+                 geo.windows, geo.smem_bytes)
     return out

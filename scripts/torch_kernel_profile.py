@@ -1,11 +1,18 @@
 #!/usr/bin/env python3
 """Device time by CUDA kernel, and host enqueue time per call, of the
-port's radix sort and tile gather on one NVIDIA card, at ``chip_smoke.py``'s
-main-path shapes.
+port's extraction, radix sort and tile gather on one NVIDIA card, at
+``chip_smoke.py``'s main-path shapes.
 
     python3 scripts/torch_kernel_profile.py [--seed N] [--reps N]
+        [--stages 16384,4096,8192,32768]
 
-Sorts: the k = 31 keys and the k = 61 / 81 / 95 word rows extracted from
+Extraction: the k = 31 keys and the k = 61 / 81 / 95 word rows of
+chip_smoke's simulated 4,641,652 bp input, once for each stage size in
+``--stages`` (``extract.STAGE_BASES``, the code bytes a CTA packs; the
+first is the wrapper's), each line with its reads per CTA and shared
+memory; then ``fill_`` of a tensor of the output's size (the card writing
+those bytes and nothing else) and ``copy_`` of it (reading and writing
+them), the rates a streaming kernel can reach. Sorts: the k = 31 keys and the k = 61 / 81 / 95 word rows extracted from
 chip_smoke's simulated 4,641,652 bp input. Each function is warmed up once,
 then ``torch.profiler`` records ``--reps`` calls; one line per function
 lists every CUDA kernel and memset it ran with its calls and mean device
@@ -74,6 +81,7 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--reps", type=int, default=3)
+    ap.add_argument("--stages", default="16384,4096,8192,32768")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("needs a CUDA card", file=sys.stderr)
@@ -95,6 +103,24 @@ def main(argv=None) -> int:
     lens = torch.full((reads.shape[0],), chip_smoke.READ_LEN,
                       dtype=torch.int32, device=dev)
     del reads
+    default_stage = extract.STAGE_BASES
+    for k in (31,) + chip_smoke.ROW_KS:
+        fn = (extract.extract_canonical_keys if k <= 31
+              else extract.extract_canonical_rows)
+        for stage in (int(s) for s in args.stages.split(",")):
+            extract.STAGE_BASES = stage
+            geo = extract.launch_geometry(chip_smoke.READ_LEN, k)
+            show(f"extract k={k} W={num_words(k)} stage={stage} "
+                 f"({geo.reads} reads per CTA, {geo.smem_bytes} B shared)",
+                 device_us(lambda: fn(bases, lens, k=k), args.reps))
+        extract.STAGE_BASES = default_stage
+        out = fn(bases, lens, k=k)
+        show(f"fill_ of the k={k} output ({out.numel() * 8} B)",
+             device_us(lambda: out.fill_(0), args.reps))
+        dst = torch.empty_like(out)
+        show(f"copy_ of the k={k} output ({out.numel() * 8} B each way)",
+             device_us(lambda: dst.copy_(out), args.reps))
+        del out, dst
     keys = extract.extract_canonical_keys(bases, lens, k=31)
     show(f"sort_keys n={keys.numel()}",
          device_us(lambda: radix_sort.sort_keys(keys, bits=62), args.reps))

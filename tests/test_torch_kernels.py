@@ -164,6 +164,306 @@ def test_extract_kernel_matches_plain(k, front_clip, end_clip):
     assert torch.equal(got.cpu(), want)
 
 
+@pytest.mark.parametrize("k", [1, 31, 32, 62, 63, 94, 99])
+@pytest.mark.parametrize("L", [None, 101, 4096, 16_384, 16_385, 1 << 20])
+def test_launch_geometry_fits_two_ctas_per_sm(k, L):
+    """At least one read per CTA, whole reads unless a row is longer than
+    the stage, and shared memory for two CTAs on one SM (each CTA also
+    takes 1 KB of the SM's 228 KB)."""
+    L = L or k
+    g = ext.launch_geometry(L, k)
+    wn = L - k + 1
+    assert g.reads >= 1 and g.windows >= 1
+    assert g.ctas_per_read == -(-wn // g.windows)
+    if L <= ext.STAGE_BASES:
+        assert g.ctas_per_read == 1 and g.windows == wn
+        assert g.reads * L <= ext.STAGE_BASES
+        assert g.reads == ext.MAX_READS or (g.reads + 1) * L > ext.STAGE_BASES
+    else:
+        assert g.reads == 1 and g.windows + k - 1 == ext.STAGE_BASES
+    assert 2 * (g.smem_bytes + 1024) <= 228 * 1024   # an H100 SM's
+    assert g.smem_bytes % 8 == 0
+
+
+def _pack16(chunks):
+    """(n, 16) codes -> n uint32, first base high, through the kernel's
+    ``pack4``: mask, byte reversal, two shift-ors."""
+    v = (chunks.astype(np.uint64) & 3)
+    out = np.zeros(len(chunks), np.uint64)
+    for q in range(4):
+        b = v[:, 4 * q: 4 * q + 4]
+        s = b[:, 3] | (b[:, 2] << 8) | (b[:, 1] << 16) | (b[:, 0] << 24)
+        s |= s >> 6
+        s |= s >> 12
+        out |= (s & 0xFF) << (8 * (3 - q))
+    return out
+
+
+_BREV8 = np.array([int(f"{i:08b}"[::-1], 2) for i in range(256)], np.uint64)
+
+
+def _revcomp16(f):
+    """The kernel's ``revcomp16``: bit reversal, pair swap, complement."""
+    r = np.zeros_like(f)
+    for q in range(4):
+        r |= _BREV8[(f >> (8 * q)) & 0xFF] << (8 * (3 - q))
+    r = ((r >> 1) & 0x55555555) | ((r & 0x55555555) << 1)
+    return ~r & 0xFFFFFFFF
+
+
+def _cut(stream, pos, n):
+    c, sh = pos >> 4, (2 * (pos & 15)).astype(np.uint64)
+    a, b, d = stream[c], stream[c + 1], stream[c + 2]
+    hi = ((a << sh) | (b >> (np.uint64(32) - sh))) & 0xFFFFFFFF
+    lo = ((b << sh) | (d >> (np.uint64(32) - sh))) & 0xFFFFFFFF
+    return ((hi << np.uint64(32)) | lo) >> np.uint64(64 - 2 * n)
+
+
+def _kernel_model(mat, lens, k, front_clip, end_clip, addr):
+    """``csrc/extract_kmers.cu`` step by step in numpy, for a matrix whose
+    first byte sits at ``addr`` mod 16: each CTA's span from the 16-byte
+    chunk holding its first byte, the packed and mirrored rc streams, the
+    window bounds, the threads' (read, window) steps from the 32-window
+    boundary of the output before the CTA's first window, and the
+    funnel-shift cuts. Returns the ``(R * wn, W)`` keys and checks every CTA's shared
+    memory against the geometry."""
+    R, L = mat.shape
+    W, wn, T = len(word_bases(k)), L - k + 1, ext.THREADS
+    geo = ext.launch_geometry(L, k)
+    flat = mat.reshape(-1)
+    out = np.full((R * wn, W), -1, np.int64)
+    sent = np.array(ext.sentinel(k), np.int64).reshape(-1)
+    n_of = word_bases(k)
+    ctas = (-(-R // geo.reads) if geo.ctas_per_read == 1
+            else R * geo.ctas_per_read)
+    for blk in range(ctas):
+        if geo.ctas_per_read == 1:
+            r0, w0, nw = blk * geo.reads, 0, wn
+            nr = min(geo.reads, R - r0)
+        else:
+            r0, nr = blk // geo.ctas_per_read, 1
+            w0 = blk % geo.ctas_per_read * geo.windows
+            nw = min(geo.windows, wn - w0)
+        start, span = r0 * L + w0, (nr - 1) * L + nw + k - 1
+        off = (addr + start) % 16
+        nch = (off + span + 15) // 16
+        stage = 8 * T * W if W > 1 else 0
+        assert stage + 8 * nr + 8 * (nch + 2) <= geo.smem_bytes
+        buf = np.zeros(16 * nch, np.uint8)
+        buf[off: off + span] = flat[start: start + span]
+        fwd = _pack16(buf.reshape(nch, 16))
+        pad = np.zeros(2, np.uint64)
+        rc = np.concatenate([_revcomp16(fwd)[::-1], pad])
+        fwd = np.concatenate([fwd, pad])
+        ln = lens[r0: r0 + nr].astype(np.int64)
+        ok = (ln - k - end_clip > 1) & (front_clip <= ln)
+        lo = np.where(ok, front_clip, 1)
+        hi = np.where(ok, np.minimum(ln - end_clip - k, wn - 1), 0)
+        total, row = nr * nw, L if nr > 1 else 0
+        lead = (r0 * wn + w0) % 32
+        t = np.arange(T)
+        sit_out = t < lead
+        g0 = t - lead + np.where(sit_out, T, 0)
+        rl, wl = g0 // nw, g0 % nw
+        p = off + rl * row + wl
+        for base in range(-lead, total, T):
+            g = base + t
+            live = ~sit_out & (g < total)
+            assert np.all(g[live] >= 0)
+            gl, rr, ww, pp = g[live], rl[live], wl[live] + w0, p[live]
+            valid = (ww >= lo[rr]) & (ww <= hi[rr])
+            f = np.stack([_cut(fwd, pp + 31 * i, n)
+                          for i, n in enumerate(n_of)], 1).astype(np.int64)
+            c = np.stack([_cut(rc, 16 * nch - k - pp + 31 * i, n)
+                          for i, n in enumerate(n_of)], 1).astype(np.int64)
+            key = np.where(_rows_le(f, c)[:, None], f, c)
+            key[~valid] = sent
+            out[(r0 * wn + w0) + gl] = key
+            step = ~sit_out
+            sit_out = np.zeros(T, bool)
+            wl, rl, p = (wl + step * (T % nw), rl + step * (T // nw),
+                         p + step * (T // nw * row + T % nw))
+            wrap = wl >= nw
+            wl, rl, p = (np.where(wrap, wl - nw, wl), rl + wrap,
+                         np.where(wrap, p + row - nw, p))
+    return out
+
+
+def _rows_le(a, b):
+    """Lexicographic a <= b over the rows' words."""
+    le, decided = np.ones(len(a), bool), np.zeros(len(a), bool)
+    for i in range(a.shape[1]):
+        diff = ~decided & (a[:, i] != b[:, i])
+        le[diff] = a[diff, i] < b[diff, i]
+        decided |= diff
+    return le
+
+
+def _plain(mat, lens, k, front_clip=0, end_clip=0):
+    fn = (ext.extract_canonical_keys_torch if k <= 31
+          else ext.extract_canonical_rows_torch)
+    got = fn(torch.as_tensor(mat), torch.as_tensor(lens), k=k,
+             front_clip=front_clip, end_clip=end_clip)
+    return got.reshape(got.shape[0], -1).numpy()
+
+
+def _edge_lengths(n, L, k, seed):
+    """Lengths 0, k - 1, k, k + 1, L and L + 5 among random ones."""
+    rng = np.random.default_rng(seed)
+    lens = rng.integers(0, L + 1, n).astype(np.int32)
+    edges = np.array([0, k - 1, k, k + 1, L, L + 5], np.int32)
+    lens[: min(n, len(edges))] = edges[: n]
+    return lens
+
+
+@pytest.mark.parametrize("L,ks", [(100, range(1, 100)),
+                                  (151, [31, 32, 62, 63, 93, 94]),
+                                  (250, [21, 61, 95])])
+@pytest.mark.parametrize("addr", [0, 1, 7, 15])
+def test_kernel_model_matches_plain(L, ks, addr):
+    """The kernel's stream arithmetic, played in numpy at every byte
+    offset of the matrix, gives the plain version's keys at every k."""
+    rng = np.random.default_rng(L + addr)
+    for k in ks:
+        R = 12 if k % 2 else 40
+        mat = rng.integers(0, 4, (R, L), dtype=np.uint8)
+        lens = _edge_lengths(R, L, k, seed=k)
+        clips = (0, 0) if k % 3 else (3, 2)
+        np.testing.assert_array_equal(
+            _kernel_model(mat, lens, k, *clips, addr), _plain(mat, lens, k, *clips),
+            err_msg=f"k={k}")
+
+
+@pytest.mark.parametrize("L,k,stage", [(1000, 31, 300), (1000, 95, 300),
+                                       (700, 62, 250), (130, 99, 128)])
+def test_kernel_model_split_rows_match_plain(monkeypatch, L, k, stage):
+    """Rows longer than the stage: a CTA per ``windows`` windows of one
+    read, the last CTA of a read short."""
+    monkeypatch.setattr(ext, "STAGE_BASES", stage)
+    assert ext.launch_geometry(L, k).ctas_per_read > 1
+    rng = np.random.default_rng(k)
+    mat = rng.integers(0, 4, (3, L), dtype=np.uint8)
+    lens = _edge_lengths(3, L, k, seed=1)
+    lens[-1] = L
+    np.testing.assert_array_equal(_kernel_model(mat, lens, k, 2, 1, 5),
+                                  _plain(mat, lens, k, 2, 1))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("L", [100, 101, 151, 250])
+def test_extract_kernel_every_k_matches_plain(L):
+    """Every k from 1 to 99 (both wrappers), with and without clips, at
+    lengths 0, k - 1, k, k + 1, L, L + 5 and random ones."""
+    dev = _card()
+    rng = np.random.default_rng(L)
+    for k in range(1, min(L, 99) + 1):
+        mat = rng.integers(0, 4, (257, L), dtype=np.uint8)
+        lens = _edge_lengths(257, L, k, seed=k)
+        for clips in ((0, 0), (3, 2), (0, 7)):
+            _check_kernel(dev, mat, lens, k, *clips)
+
+
+def _check_kernel(dev, mat, lens, k, front_clip=0, end_clip=0, slice_from=0):
+    """Launch on the card (the matrix from row ``slice_from`` of a copy
+    on the card, so a row slice) and require the plain version's keys."""
+    want = _plain(mat[slice_from:], lens[slice_from:], k, front_clip,
+                  end_clip)
+    fn = (ext.extract_canonical_keys if k <= 31
+          else ext.extract_canonical_rows)
+    m = torch.from_numpy(mat).to(dev)[slice_from:]
+    ln = torch.from_numpy(lens).to(dev)[slice_from:]
+    assert m.is_contiguous()
+    got = fn(m, ln, k=k, front_clip=front_clip, end_clip=end_clip)
+    torch.cuda.synchronize()
+    np.testing.assert_array_equal(got.cpu().reshape(len(want), -1).numpy(),
+                                  want, err_msg=f"k={k}")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [1, 17, 31, 32, 61, 62, 63, 93, 94, 99])
+def test_extract_kernel_row_width_k(k):
+    """L = k: one window per row."""
+    dev = _card()
+    rng = np.random.default_rng(k)
+    mat = rng.integers(0, 4, (1000, k), dtype=np.uint8)
+    lens = _edge_lengths(1000, k, k, seed=k)
+    lens[10:] = k + 2
+    _check_kernel(dev, mat, lens, k)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [31, 61, 95])
+@pytest.mark.parametrize("at", ["1", "RB-1", "RB", "RB+1", "3RB+5"])
+def test_extract_kernel_read_block_edges(k, at):
+    """R around the reads per CTA: the last CTA's ragged block."""
+    dev = _card()
+    L = 100
+    rb = ext.launch_geometry(L, k).reads
+    R = {"1": 1, "RB-1": rb - 1, "RB": rb, "RB+1": rb + 1,
+         "3RB+5": 3 * rb + 5}[at]
+    rng = np.random.default_rng(R)
+    mat = rng.integers(0, 4, (R, L), dtype=np.uint8)
+    _check_kernel(dev, mat, _edge_lengths(R, L, k, seed=R), k, 1, 1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("L,k", [(101, 31), (101, 61), (151, 21), (99, 95),
+                                 (4097, 81)])
+@pytest.mark.parametrize("slice_from", [1, 3])
+def test_extract_kernel_misaligned_row_slice(L, k, slice_from):
+    """``mat[1:]`` at odd L is contiguous but not 16-byte aligned."""
+    dev = _card()
+    rng = np.random.default_rng(L + k)
+    R = 700
+    mat = rng.integers(0, 4, (R, L), dtype=np.uint8)
+    _check_kernel(dev, mat, _edge_lengths(R, L, k, seed=k), k, 2, 3,
+                  slice_from=slice_from)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("L", [4096, 16_384, 16_385, 40_000])
+@pytest.mark.parametrize("k", [31, 95])
+def test_extract_kernel_long_rows(L, k):
+    """Long rows: four reads per CTA at 4096, one at 16,384, and split
+    across CTAs above the stage."""
+    dev = _card()
+    rng = np.random.default_rng(L + k)
+    mat = rng.integers(0, 4, (9, L), dtype=np.uint8)
+    lens = _edge_lengths(9, L, k, seed=L)
+    lens[6:] = [L, L - 1000, L // 2]
+    _check_kernel(dev, mat, lens, k, 4, 2, slice_from=1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("L,k,stage", [(1000, 31, 300), (1000, 95, 300),
+                                       (700, 62, 250), (130, 99, 128)])
+def test_extract_kernel_split_rows(monkeypatch, L, k, stage):
+    """The split-row form at small sizes: a read's last CTA short."""
+    dev = _card()
+    monkeypatch.setattr(ext, "STAGE_BASES", stage)
+    rng = np.random.default_rng(k)
+    mat = rng.integers(0, 4, (50, L), dtype=np.uint8)
+    _check_kernel(dev, mat, _edge_lengths(50, L, k, seed=2), k, 2, 1,
+                  slice_from=1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [31, 61])
+def test_extract_kernel_reads_two_bits_of_each_byte(k):
+    """Bytes above 3 give the keys of their low two bits."""
+    dev = _card()
+    rng = np.random.default_rng(k)
+    mat = rng.integers(0, 4, (300, 101), dtype=np.uint8)
+    lens = _edge_lengths(300, 101, k, seed=k)
+    high = mat | (rng.integers(0, 64, mat.shape, dtype=np.uint8) << 2)
+    fn = (ext.extract_canonical_keys if k <= 31
+          else ext.extract_canonical_rows)
+    got = fn(torch.from_numpy(high).to(dev), torch.from_numpy(lens).to(dev),
+             k=k)
+    np.testing.assert_array_equal(got.cpu().reshape(-1, len(word_bases(k)))
+                                  .numpy(), _plain(mat, lens, k))
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("k,n", [(31, 1_000_003), (31, 4096), (21, 4097),
                                  (9, 77), (4, 1)])
