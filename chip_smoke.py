@@ -33,7 +33,20 @@ script. Phases, one line each:
      every ``_SUCCESS`` present, and the one-word and W-word kernels both
      launched;
   8. ``reduce`` through the kernels vs through their plain versions on
-     the 200 kb genome: every output file byte-identical.
+     the 200 kb genome: every output file byte-identical;
+  9. ``meta`` at bacterial scale, run (between phases 7 and 8) on phase
+     7's output directory, so it starts from the ``Count_<k>_reduced``
+     tables as the ``reduce`` -> ``meta`` contract says:
+     ``cli.main(["meta", ..., "-device", "cuda"])``; ``Assembly/_SUCCESS``
+     and the ``steps/`` stage directories present, extraction and the
+     one-word sort launched (stage 04 indexes the read windows at k = 31
+     for end extension, and counts the reads at k = 23 when contigs of
+     at most 64 kb go through reassembly), and the
+     canonical contig total at least 0.95 x the genome (no upper bound:
+     the algorithm's contigs overlap);
+  10. ``meta`` through the kernels vs through their plain versions on the
+     200 kb genome and on a 30 kb one, whose contigs go through read-graph
+     reassembly: identical (header, sequence) lists.
 
 Phases 2 and 3 also hold the W-word extraction and row sort (k = 61, 81
 and 95: W = 2, 3 and 4 words) to their plain versions on the main path's
@@ -61,6 +74,7 @@ import numpy as np
 REPO = os.path.dirname(os.path.abspath(__file__))
 GENOME_BP = 4_641_652        # E. coli K-12 MG1655 (NC_000913.3)
 CHECK_BP = 200_000
+FRAG_BP = 30_000             # phase 10: contigs under the 64 kb reassembly cap
 READ_LEN, DEPTH, ERR = 100, 30, 0.005
 SORT_N = 1 << 27
 ROW_KS = (61, 81, 95)        # W = 2, 3 and 4 words
@@ -557,6 +571,8 @@ def phases_4_to_8(torch, args, dev, work, fq, genome, launches, rows,
         f"{json.dumps(red_launches)}; stages_s "
         f"{json.dumps(met['stages_s'])}; counters "
         f"{json.dumps(met['counters'])}")
+    torch.cuda.empty_cache()
+    tally(meta_phase(torch, cli, fq, rout, genome))
     shutil.rmtree(rout)
 
     # 8. reduce, kernel path vs plain path on the card, 200 kb
@@ -582,6 +598,93 @@ def phases_4_to_8(torch, args, dev, work, fq, genome, launches, rows,
     say(f"phase 8 reduce 200 kb: kernel path == plain path, {len(files)} "
         f"files, {size} bytes, byte-identical; {walls[0]:.1f} s vs "
         f"{walls[1]:.1f} s")
+
+    # 10. meta, kernel path vs plain path on the card: at 200 kb, and at
+    # 30 kb, where the contigs are short enough for read-graph reassembly
+    from reflexiv_tpu_torch.meta import dynamic_assembly
+
+    _g, frag = simulate(np.random.default_rng(args.seed + 2), FRAG_BP)
+    ffq = os.path.join(work, "frag.fq")
+    write_fastq(ffq, frag)
+    for label, path in (("200 kb", sfq), ("30 kb", ffq)):
+        walls, lists, fragments = [], [], []
+        for name, plain in (("meta_kernels", False), ("meta_plain", True)):
+            out = os.path.join(work, name + label.replace(" ", ""))
+            metrics.reset()
+            t0 = time.perf_counter()
+            dynamic_assembly(Params(min_kmer_coverage=3, input_fastq=path,
+                                    output_path=out), device=dev, plain=plain)
+            walls.append(time.perf_counter() - t0)
+            fragments.append(metrics.current().counts.get(
+                "meta/reassembly_fragments", 0))
+            lists.append(contig_seqs(os.path.join(out, "Assembly",
+                                                  "part-00000")))
+        if not lists[0] or lists[0] != lists[1]:
+            raise SystemExit(f"meta kernel path ({len(lists[0])} contigs) "
+                             f"!= plain path ({len(lists[1])} contigs) at "
+                             f"{label}")
+        if label == "30 kb" and min(fragments) < 1:
+            raise SystemExit(f"meta at 30 kb skipped reassembly: {fragments}")
+        st = assembly_stats(lists[0])
+        say(f"phase 10 meta {label}: kernel path == plain path, "
+            f"{len(lists[0])} contigs, canonical total {st['total_bp']} bp, "
+            f"{fragments[0]} contigs through reassembly; {walls[0]:.1f} s "
+            f"vs {walls[1]:.1f} s")
+
+
+def meta_phase(torch, cli, fq, rout, genome):
+    """Phase 9: ``meta`` on phase 7's output directory, with the launch
+    counts set to 0 just before it. Returns its launches."""
+    from reflexiv_tpu_torch.contigs import assembly_stats, canonical_set
+    from reflexiv_tpu_torch.kernels import extract, radix_sort
+
+    extract.LAUNCHES = 0
+    radix_sort.LAUNCHES = 0
+    extract.ROW_LAUNCHES.clear()
+    radix_sort.ROW_LAUNCHES.clear()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    rc = cli.main(["meta", "-fastq", fq, "-cover", "3", "-outfile", rout,
+                   "-device", "cuda"])
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    got = {"extract": extract.LAUNCHES, "sort": radix_sort.LAUNCHES}
+    for W, c in extract.ROW_LAUNCHES.items():
+        got[f"extract_rows{W}"] = c
+    for W, c in radix_sort.ROW_LAUNCHES.items():
+        got[f"sort_rows{W}"] = c
+    if rc != 0:
+        raise SystemExit(f"meta exited {rc}")
+    if min(got["extract"], got["sort"]) < 1:
+        raise SystemExit(f"meta skipped a kernel: {got}")
+    asm = os.path.join(rout, "Assembly")
+    missing = [d for d in [asm] + [os.path.join(rout, "steps", s) for s in
+                                   ("01reduced", "02extended", "03fixed",
+                                    "04contigs")]
+               if not os.path.exists(os.path.join(d, "_SUCCESS"))]
+    if missing:
+        raise SystemExit(f"meta left no _SUCCESS in {missing}")
+    contigs = contig_seqs(os.path.join(asm, "part-00000"))
+    with open(os.path.join(rout, "metrics.json")) as fh:
+        met = json.load(fh)
+    stats = assembly_stats(contigs)
+    share = stats["total_bp"] / GENOME_BP
+    gstr = ACGT[genome].tobytes().decode()
+    rc_str = ACGT[3 - genome[::-1]].tobytes().decode()
+    exact = sum(len(c) for c in canonical_set(contigs)
+                if c in gstr or c in rc_str)
+    say(f"phase 9 meta: {wall:.1f} s wall, peak device memory {peak:.2f} "
+        f"GiB; {met['counters'].get('meta/extension_rounds')} extension "
+        f"rounds; contigs {stats['n_contigs']} (canonical), total "
+        f"{stats['total_bp']} bp = {share:.4f} x genome (redundancy), "
+        f"longest {stats['longest']}, N50 {stats['n50']}, exact-match bp "
+        f"{exact}; launches {json.dumps(got)}; stages_s "
+        f"{json.dumps(met['stages_s'])}; counters "
+        f"{json.dumps(met['counters'])}")
+    if share < 0.95:
+        raise SystemExit(f"meta contig total {stats['total_bp']} bp is "
+                         f"{share:.4f} x the genome, under 0.95")
+    return got
 
 
 if __name__ == "__main__":

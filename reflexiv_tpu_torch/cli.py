@@ -1,17 +1,20 @@
-"""Command-line interface: the ``run``, ``counter`` and ``reduce`` commands of ``reflexiv_tpu.cli``.
+"""Command-line interface: the ``run``, ``meta``, ``counter`` and ``reduce`` commands of ``reflexiv_tpu.cli``.
 
 Same command names and flags as ``reflexiv_tpu/cli.py`` (the reference
 launcher's, ``util/Parameter.java:68-104``), plus ``-device`` (default
 ``cuda``; ``cuda`` without a usable card raises, it never runs on the CPU
-in its place). ``run`` takes k <= 31; ``counter`` and ``reduce`` take
-k <= 99. The other commands, and ``reduce -accurate``, are not ported yet:
-they print so and exit with status 2.
+in its place). ``run`` takes k <= 31; ``meta``, ``counter`` and ``reduce``
+take k <= 99. The other commands, ``reduce -accurate`` and ``meta
+-accurate``/``-patch``/``-scaffold`` are not ported yet: they print so and
+exit with status 2.
 
     python -m reflexiv_tpu_torch.cli run -fastq 'reads*.fq.gz' \
         -outfile ./result -kmer 31 -cover 3
     python -m reflexiv_tpu_torch.cli counter -fastq reads.fq.gz \
         -outfile ./out -kmer 61 -device cpu
     python -m reflexiv_tpu_torch.cli reduce -fastq reads.fq.gz \
+        -outfile ./out -cover 3
+    python -m reflexiv_tpu_torch.cli meta -fastq reads.fq.gz \
         -outfile ./out -cover 3
 """
 from __future__ import annotations
@@ -33,8 +36,11 @@ COMMANDS = (
     "run", "meta", "counter", "reduce", "reassembler",
     "merger", "mercy", "preprocess", "stitch",
 )
-PORTED = ("run", "counter", "reduce")
-UNPORTED_FLAGS = {"reduce": ("accurate",)}   # refused, exit status 2
+PORTED = ("run", "meta", "counter", "reduce")
+UNPORTED_FLAGS = {                # refused, exit status 2
+    "reduce": ("accurate",),
+    "meta": ("accurate", "patch", "scaffold"),
+}
 
 
 def _add_common(p: argparse.ArgumentParser) -> None:
@@ -227,6 +233,15 @@ def cmd_run(params: Params, seed: int, device) -> None:
         "longest=%d N50=%d)", len(contigs), out, stats["n_contigs"],
         stats["total_bp"], stats["longest"], stats["n50"],
     )
+
+
+def cmd_meta(params: Params, seed: int, device) -> None:
+    """Dynamic multi-k assembly (MainMeta -> the staged dynamic pipe);
+    after a ``reduce`` into the same -outfile it starts from its
+    ``Count_<k>_reduced`` tables."""
+    from .meta import dynamic_assembly
+
+    dynamic_assembly(params, seed=seed, device=device)
 
 
 def cmd_reduce(params: Params, seed: int, device) -> None:

@@ -1,6 +1,7 @@
 """The ``reduce`` command: per-k counting, fork filtering and pairwise
 reduction along the k ladder (PyTorch counterpart of the reduce half of
-``reflexiv_tpu.dynamic``; ``meta``'s mixed-k extension is not ported yet).
+``reflexiv_tpu.dynamic``; ``meta``, which starts from these tables, is
+:mod:`reflexiv_tpu_torch.meta`).
 
   * **per-k sorting** (``ReflexivDSKmerLeftAndRightSorting``): counted
     k-mers -> RC expansion + both-direction fork filters -> full k-mers
@@ -418,23 +419,78 @@ def _write_sorted_set(directory: str, triple: Triple, k: int, *,
     return n
 
 
-def read_sorted_set(pattern: str, k: int) -> Triple:
-    """Read a ``Count_<k>_sorted``/``_reduced`` table back
-    (``dynamic.read_sorted_set``)."""
+def _parse_rows_lines(data: bytes, k: int) -> Triple:
+    """``KMER,marker|left|right`` lines parsed one at a time."""
     rows, lefts, rights = [], [], []
-    for part in part_files(pattern):
-        opener = gzip.open if part.endswith(".gz") else open
-        with opener(part, "rb") as fh:
-            for line in fh:
-                line = line.strip()
-                if not line:
-                    continue
-                km, _, attr = line.partition(b",")
-                _m, l, r = attr.split(b"|")
-                rows.append(km)
-                lefts.append(int(l))
-                rights.append(int(r))
+    for line in data.splitlines():
+        line = line.strip()
+        if not line:
+            continue
+        km, _, attr = line.partition(b",")
+        _m, l, r = attr.split(b"|")
+        rows.append(km)
+        lefts.append(int(l))
+        rights.append(int(r))
     bases = np.stack([
         encode_ascii(np.frombuffer(s, np.uint8)) for s in rows
     ]) if rows else np.zeros((0, k), np.uint8)
     return bases, np.asarray(lefts, np.int32), np.asarray(rights, np.int32)
+
+
+def _parse_ints(buf: np.ndarray, lo: np.ndarray, hi: np.ndarray):
+    """The decimal integers at ``buf[lo:hi]`` per row (an optional leading
+    minus), digit column by digit column; None if a field is not one."""
+    neg = buf[lo] == ord("-")
+    lo = lo + neg
+    width = hi - lo
+    if not len(width) or width.min() < 1 or width.max() > 18:
+        return None
+    val = np.zeros(len(lo), np.int64)
+    for d in range(int(width.max())):
+        m = d < width
+        digit = buf[np.where(m, lo + d, 0)].astype(np.int64) - ord("0")
+        if np.any(m & ((digit < 0) | (digit > 9))):
+            return None
+        val = np.where(m, val * 10 + digit, val)
+    return np.where(neg, -val, val)
+
+
+def _parse_rows(data: bytes, k: int) -> Triple:
+    """The same rows parsed as whole arrays: each line's first k bytes are
+    its k-mer, byte k its comma, and two bars split the rest; the two
+    integers after the bars are read digit column by digit column. Files
+    not of that shape go line by line."""
+    buf = np.frombuffer(data, np.uint8)
+    ends = np.flatnonzero(buf == ord("\n"))
+    starts = np.concatenate([[0], ends + 1])
+    ends = np.concatenate([ends, [len(buf)]])
+    nonempty = ends > starts
+    starts, ends = starts[nonempty], ends[nonempty]
+    n = len(starts)
+    bars = np.flatnonzero(buf == ord("|"))
+    if n == 0 or len(bars) != 2 * n or np.any(ends - starts <= k + 1) \
+            or np.any(buf[starts + k] != ord(",")):
+        return _parse_rows_lines(data, k)
+    bar1, bar2 = bars[0::2], bars[1::2]
+    if np.any(bar1 <= starts + k) or np.any(bar2 >= ends):
+        return _parse_rows_lines(data, k)
+    left = _parse_ints(buf, bar1 + 1, bar2)
+    right = _parse_ints(buf, bar2 + 1, ends)
+    if left is None or right is None:
+        return _parse_rows_lines(data, k)
+    bases = np.lib.stride_tricks.sliding_window_view(buf, k)[starts]
+    return encode_ascii(bases), left.astype(np.int32), right.astype(np.int32)
+
+
+def read_sorted_set(pattern: str, k: int) -> Triple:
+    """Read a ``Count_<k>_sorted``/``_reduced`` table back
+    (``dynamic.read_sorted_set``)."""
+    parts = []
+    for part in part_files(pattern):
+        opener = gzip.open if part.endswith(".gz") else open
+        with opener(part, "rb") as fh:
+            parts.append(_parse_rows(fh.read(), k))
+    if not parts:
+        return (np.zeros((0, k), np.uint8), np.zeros(0, np.int32),
+                np.zeros(0, np.int32))
+    return tuple(np.concatenate(cols) for cols in zip(*parts))

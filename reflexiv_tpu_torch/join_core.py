@@ -1,7 +1,9 @@
-"""Merge gate and segment primitives of the extension round (``reflexiv_tpu.join_core``).
+"""Merge gate and segment primitives of the extension rounds (``reflexiv_tpu.join_core``).
 
-The reference's blocked/extendable merge gate, fixed-k form
-(``ReflexivDSMain.java:3070-3086``).
+The reference's blocked/extendable merge gate: the fixed-k form
+(``ReflexivDSMain.java:3070-3086``) and, with ``extra``, the mixed-k form
+with its extraLength adjustment (``ReflexivDSDynamicKmerIteration.java
+:556-575``).
 """
 from __future__ import annotations
 
@@ -17,20 +19,37 @@ class GateResult(NamedTuple):
     new_right: torch.Tensor
 
 
-def merge_gate(f_left, f_right, r_left, r_right, f_ext, r_ext) -> GateResult:
-    """The four-case merge gate + fixed-k attribute propagation
-    (``join_core.merge_gate`` with ``extra=None``)."""
+def merge_gate(f_left, f_right, r_left, r_right, f_ext, r_ext,
+               extra=None) -> GateResult:
+    """The four-case merge gate + attribute propagation
+    (``join_core.merge_gate``). ``extra`` (forward sub-k-mer length minus
+    the reflected one) selects the mixed-k form: the extraLength-adjusted
+    fourth case and the dynamic ``reflexivExtend`` end attrs, negative
+    magnitudes clamped at -1,000,000; ``None`` the fixed-k form, whose
+    attrs pass through from the outer record ends."""
     c1 = (f_left < 0) & (r_right < 0)
     c2 = (f_left >= 0) & (r_right >= 0)
     c3 = ~c1 & ~c2 & (f_left >= 0) & (f_left - r_ext >= 0)
-    c4 = ~c1 & ~c2 & ~c3 & (r_right >= 0) & (r_right - f_ext >= 0)
+    r_room = r_right - f_ext if extra is None else r_right - f_ext - extra
+    c4 = ~c1 & ~c2 & ~c3 & (r_right >= 0) & (r_room >= 0)
     merge = c1 | c2 | c3 | c4
     bubble = torch.where(
         c1 | c2, -1, torch.where(c3, f_left - r_ext, r_right - f_ext))
-    new_left = torch.where(
-        bubble < 0, r_left, torch.where(f_left > 0, bubble, r_left))
-    new_right = torch.where(
-        bubble < 0, f_right, torch.where(f_left > 0, f_right, bubble))
+    if extra is None:
+        new_left = torch.where(
+            bubble < 0, r_left, torch.where(f_left > 0, bubble, r_left))
+        new_right = torch.where(
+            bubble < 0, f_right, torch.where(f_left > 0, f_right, bubble))
+    else:
+        left_free = torch.where(r_left >= 0, r_left, f_left - r_ext) \
+            .clamp(min=-1_000_000)
+        right_free = torch.where(f_right >= 0, f_right, r_room) \
+            .clamp(min=-1_000_000)
+        new_left = torch.where(
+            bubble < 0, left_free, torch.where(f_left > 0, bubble, left_free))
+        new_right = torch.where(
+            bubble < 0, right_free,
+            torch.where(f_left > 0, right_free, bubble - extra))
     return GateResult(merge, bubble, new_left.to(torch.int32),
                       new_right.to(torch.int32))
 

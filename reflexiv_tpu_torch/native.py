@@ -1,11 +1,11 @@
 """ctypes loader for the shared native C++ IO library (``native/``).
 
 The same ``native/libreflexiv_native.so`` that ``reflexiv_tpu.native``
-loads, built on demand with ``make -C native`` (g++ + zlib). Only the read
-decoder is bound here: :func:`load_reads_native` decodes FASTQ/FASTA files
-straight into 2-bit code matrices. Returns None when the library cannot be
-built or loaded, and :func:`reflexiv_tpu_torch.io.load_reads` then uses the
-Python readers.
+loads, built on demand with ``make -C native`` (g++ + zlib). Two entry
+points are bound here: :func:`load_reads_native` decodes FASTQ/FASTA files
+straight into 2-bit code matrices, and :func:`dedup_contigs_native` drops
+contigs contained in longer ones. Each returns None when the library
+cannot be built or loaded; the callers then use their Python versions.
 """
 from __future__ import annotations
 
@@ -83,8 +83,39 @@ def _get_lib() -> Optional[ctypes.CDLL]:
         ctypes.POINTER(ctypes.c_uint8), ctypes.POINTER(ctypes.c_int32),
         ctypes.c_int64,
     ]
+    lib.rfx_dedup.restype = ctypes.c_int64
+    lib.rfx_dedup.argtypes = [
+        ctypes.POINTER(ctypes.c_uint8), _I64P, ctypes.c_int64,
+        ctypes.c_int32, ctypes.c_int32, ctypes.POINTER(ctypes.c_uint8),
+    ]
     _lib = lib
     return lib
+
+
+def dedup_contigs_native(contigs: List[str], *,
+                         seed_k: int = 31) -> Optional[List[str]]:
+    """Containment dedup over both strands in C++ (``rfx_dedup``, a seed
+    every 16 bases), the same semantics as :func:`reflexiv_tpu_torch.meta.dedup_contigs_python`
+    on the same longest-first order; None when the library is missing."""
+    from .bitpack import encode_ascii
+
+    lib = _get_lib()
+    if lib is None:
+        return None
+    ordered = sorted(set(contigs), key=len, reverse=True)
+    if not ordered:
+        return []
+    offsets = np.zeros(len(ordered) + 1, dtype=np.int64)
+    np.cumsum([len(s) for s in ordered], out=offsets[1:])
+    codes = encode_ascii(np.frombuffer("".join(ordered).encode(), np.uint8))
+    keep = np.zeros(len(ordered), dtype=np.uint8)
+    got = lib.rfx_dedup(
+        codes.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8)),
+        offsets.ctypes.data_as(_I64P), len(ordered), seed_k, 16,
+        keep.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8)))
+    if got < 0:
+        return None
+    return [s for s, k in zip(ordered, keep) if k]
 
 
 def _scan(lib, path: str, fmt: int) -> Tuple[int, int]:

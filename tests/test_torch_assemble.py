@@ -123,7 +123,7 @@ def test_cli_counter_then_run_from_kmerc(tmp_path):
 
 
 def test_cli_unported_command_exits_nonzero(tmp_path, capsys):
-    assert cli.main(["meta", "-fastq", "x.fq",
+    assert cli.main(["reassembler", "-fastq", "x.fq",
                      "-outfile", str(tmp_path)]) == 2
     assert "not ported" in capsys.readouterr().err
 
