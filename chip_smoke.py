@@ -46,7 +46,33 @@ script. Phases, one line each:
      the algorithm's contigs overlap);
   10. ``meta`` through the kernels vs through their plain versions on the
      200 kb genome and on a 30 kb one, whose contigs go through read-graph
-     reassembly: identical (header, sequence) lists.
+     reassembly: identical (header, sequence) lists;
+  11. ``-accurate`` and ``-patch``/``-scaffold`` at bacterial scale: a
+     paired library of the phase-4 genome (2 x 100 bp reads of 400 +- 40
+     bp fragments on a random strand, 30x, 696,247 pairs, 0.5%
+     substitutions, two FASTQ files) with 16 planted 30 bp stretches that
+     one error-free pair covers between solid margins (what ``-accurate``
+     bridges) and 16 uncovered 60 bp gaps that pairs span (what ``-patch``
+     links). ``cli.main(["mercy", "-paired", ..., "-kmer", "31"])``: its
+     canonical total within [0.95, 1.05] x the genome, extraction and the
+     sort launched. ``cli.main(["meta", "-paired", ..., "-accurate",
+     "-patch", "-scaffold"])`` from the FASTQ: ``Assembly/_SUCCESS``, at
+     least one row in ``04Patching/links.tsv``, at least one N run, mercy
+     k-mers rescued at k = 23, 31 and 41 (``mercy/rescued_k<k>``), the
+     one-word and every W-word extraction and sort launched, canonical
+     total at least 0.95 x the genome; it prints the stage split, links,
+     N runs, planted stretches bridged and peak device memory;
+  11b. both patching map forms on phase 11's contigs before patching
+     (``steps/04contigs``) and its pairs: the native hashed call (the
+     default) and the device form (``REFLEXIV_DEVICE_STAGES=1``), their
+     ten mapping arrays exactly equal, and both times;
+  12. kernel path vs plain path on a 200 kb paired library with 2 planted
+     stretches and 2 gaps: ``reduce -accurate`` trees, ``meta -accurate
+     -patch -scaffold`` ``Assembly/part-00000`` and ``links.tsv``, and
+     ``mercy -kmer 31`` ``part-00000``, byte-identical; then the same
+     ``meta`` again from its ``steps/04contigs`` with
+     ``REFLEXIV_DEVICE_STAGES=1`` (the device patching map), byte-identical
+     to the native map's files.
 
 Phases 2 and 3 also hold the W-word extraction and row sort (k = 61, 81
 and 95: W = 2, 3 and 4 words) to their plain versions on the main path's
@@ -63,6 +89,7 @@ import argparse
 import filecmp
 import json
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -75,6 +102,9 @@ REPO = os.path.dirname(os.path.abspath(__file__))
 GENOME_BP = 4_641_652        # E. coli K-12 MG1655 (NC_000913.3)
 CHECK_BP = 200_000
 FRAG_BP = 30_000             # phase 10: contigs under the 64 kb reassembly cap
+FRAG_MEAN, FRAG_SD = 400, 40     # phases 11-12: paired fragments
+THIN_BP, GAP_BP = 30, 60         # planted single-pair stretches and gaps
+N_PLANTED, N_PLANTED_CHECK = 16, 2   # of each, at 4.64 Mbp and at 200 kb
 READ_LEN, DEPTH, ERR = 100, 30, 0.005
 SORT_N = 1 << 27
 ROW_KS = (61, 81, 95)        # W = 2, 3 and 4 words
@@ -185,6 +215,24 @@ def bound_ms(bytes_moved: float, int_ops: float = 0.0):
     t_bytes, t_ops = bytes_moved / HBM_BYTES_S, int_ops / INT_OPS_S
     return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else \
         "operations"
+
+
+def path_launches(extract, radix_sort):
+    """The launch counters of extraction and the sort, one-word and per W."""
+    got = {"extract": extract.LAUNCHES, "sort": radix_sort.LAUNCHES}
+    for W, c in extract.ROW_LAUNCHES.items():
+        got[f"extract_rows{W}"] = c
+    for W, c in radix_sort.ROW_LAUNCHES.items():
+        got[f"sort_rows{W}"] = c
+    return got
+
+
+def zero_launches(extract, radix_sort):
+    """Set those counters to 0, just before a main path runs."""
+    extract.LAUNCHES = 0
+    radix_sort.LAUNCHES = 0
+    extract.ROW_LAUNCHES.clear()
+    radix_sort.ROW_LAUNCHES.clear()
 
 
 def tree_files(root: str):
@@ -346,6 +394,7 @@ def main(argv=None) -> int:
         del reads
         phases_4_to_8(torch, args, dev, work, fq, genome, launches, rows,
                       bounds, library)
+        phases_11_12(torch, args, dev, work, genome, launches)
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
@@ -532,21 +581,14 @@ def phases_4_to_8(torch, args, dev, work, fq, genome, launches, rows,
 
     # 7. reduce at bacterial scale, default klist
     rout = os.path.join(work, "reduce")
-    extract.LAUNCHES = 0
-    radix_sort.LAUNCHES = 0
-    extract.ROW_LAUNCHES.clear()
-    radix_sort.ROW_LAUNCHES.clear()
+    zero_launches(extract, radix_sort)
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     rc = cli.main(["reduce", "-fastq", fq, "-cover", "3", "-outfile", rout,
                    "-device", "cuda"])
     wall = time.perf_counter() - t0
     peak = torch.cuda.max_memory_allocated() / 2**30
-    red_launches = {"extract": extract.LAUNCHES, "sort": radix_sort.LAUNCHES}
-    for W, c in extract.ROW_LAUNCHES.items():
-        red_launches[f"extract_rows{W}"] = c
-    for W, c in radix_sort.ROW_LAUNCHES.items():
-        red_launches[f"sort_rows{W}"] = c
+    red_launches = path_launches(extract, radix_sort)
     if rc != 0:
         raise SystemExit(f"reduce exited {rc}")
     want = [f"Count_{k}_{s}" for k in DEFAULT_KLIST
@@ -638,21 +680,14 @@ def meta_phase(torch, cli, fq, rout, genome):
     from reflexiv_tpu_torch.contigs import assembly_stats, canonical_set
     from reflexiv_tpu_torch.kernels import extract, radix_sort
 
-    extract.LAUNCHES = 0
-    radix_sort.LAUNCHES = 0
-    extract.ROW_LAUNCHES.clear()
-    radix_sort.ROW_LAUNCHES.clear()
+    zero_launches(extract, radix_sort)
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     rc = cli.main(["meta", "-fastq", fq, "-cover", "3", "-outfile", rout,
                    "-device", "cuda"])
     wall = time.perf_counter() - t0
     peak = torch.cuda.max_memory_allocated() / 2**30
-    got = {"extract": extract.LAUNCHES, "sort": radix_sort.LAUNCHES}
-    for W, c in extract.ROW_LAUNCHES.items():
-        got[f"extract_rows{W}"] = c
-    for W, c in radix_sort.ROW_LAUNCHES.items():
-        got[f"sort_rows{W}"] = c
+    got = path_launches(extract, radix_sort)
     if rc != 0:
         raise SystemExit(f"meta exited {rc}")
     if min(got["extract"], got["sort"]) < 1:
@@ -685,6 +720,278 @@ def meta_phase(torch, cli, fq, rout, genome):
         raise SystemExit(f"meta contig total {stats['total_bp']} bp is "
                          f"{share:.4f} x the genome, under 0.95")
     return got
+
+
+
+# ---------------------------------------------------------------------------
+# phases 11-12: -accurate and -patch/-scaffold on paired libraries
+# ---------------------------------------------------------------------------
+
+def planted(genome_bp: int, n_each: int):
+    """Evenly spaced, alternating (lo, hi) of ``n_each`` thin stretches
+    and ``n_each`` gaps."""
+    step = genome_bp // (2 * n_each + 1)
+    thin = [((2 * i + 1) * step, (2 * i + 1) * step + THIN_BP)
+            for i in range(n_each)]
+    gaps = [((2 * i + 2) * step, (2 * i + 2) * step + GAP_BP)
+            for i in range(n_each)]
+    return thin, gaps
+
+
+def simulate_pairs(rng, genome: np.ndarray, thin, gaps):
+    """Mate code matrices of a paired library at DEPTH x: fragments of
+    FRAG_MEAN +- FRAG_SD bp on a random strand, ERR substitutions. No read
+    touches a planted region, but fragments span them; each thin stretch
+    gets four error-free pairs ending at each of its sides (solid margins,
+    as tests/test_e2e.py:204 builds them) and one error-free pair whose
+    first mate covers it."""
+    G, L = len(genome), READ_LEN
+    n = DEPTH * G // (2 * L)
+    regions = np.asarray(sorted(thin + gaps), np.int64)
+
+    def clear(a):
+        i = np.searchsorted(regions[:, 0], a + L) - 1
+        return (i < 0) | (regions[np.maximum(i, 0), 1] <= a)
+
+    extra = [s for lo, hi in thin for off in (0, 3, 6, 9)
+             for s in (lo - L - off, hi + off)]
+    extra += [(lo + hi - L) // 2 for lo, hi in thin]
+    n_reg = n - len(extra)
+    starts, ins = [], []
+    while sum(len(x) for x in starts) < n_reg:
+        m = n_reg + 1000
+        frag = np.maximum(np.rint(rng.normal(FRAG_MEAN, FRAG_SD, m))
+                          .astype(np.int64), 2 * L)
+        s = (rng.random(m) * (G - frag + 1)).astype(np.int64)
+        ok = clear(s) & clear(s + frag - L)
+        starts.append(s[ok])
+        ins.append(frag[ok])
+    starts = np.concatenate(starts)[:n_reg]
+    ins = np.concatenate(ins)[:n_reg]
+    cols = np.arange(L)
+    m1 = genome[starts[:, None] + cols]
+    m2 = 3 - genome[(starts + ins - L)[:, None] + cols][:, ::-1]
+    for m in (m1, m2):
+        err = rng.random(m.shape) < ERR
+        m[err] = rng.integers(0, 4, int(err.sum()), dtype=np.uint8)
+    flip = rng.random(n_reg) < 0.5
+    m1[flip], m2[flip] = m2[flip].copy(), m1[flip].copy()
+    ex = np.asarray(extra, np.int64)
+    e1 = genome[ex[:, None] + cols]
+    e2 = 3 - genome[(ex + FRAG_MEAN - L)[:, None] + cols][:, ::-1]
+    return np.concatenate([m1, e1]), np.concatenate([m2, e2])
+
+
+def write_pairs(work: str, name: str, m1, m2) -> str:
+    """Two FASTQ files; returns the ``-paired`` argument."""
+    paths = [os.path.join(work, f"{name}_{j}.fq") for j in (1, 2)]
+    for path, m in zip(paths, (m1, m2)):
+        write_fastq(path, m)
+    return ",".join(paths)
+
+
+def phases_11_12(torch, args, dev, work, genome, launches) -> None:
+    """Phases 11, 11b and 12; ``launches`` sums the launches of phase
+    11's two main-path runs, each counted from 0."""
+    from reflexiv_tpu_torch import checkpoint, cli, metrics, patching
+    from reflexiv_tpu_torch.bitpack import num_words
+    from reflexiv_tpu_torch.contigs import (assembly_stats, canonical_set,
+                                            revcomp_str)
+    from reflexiv_tpu_torch.kernels import extract, radix_sort
+    from reflexiv_tpu_torch.params import DEFAULT_KLIST, Params
+
+    # 11. the paired library at bacterial scale
+    t0 = time.perf_counter()
+    thin, gaps = planted(GENOME_BP, N_PLANTED)
+    m1, m2 = simulate_pairs(np.random.default_rng(args.seed + 3), genome,
+                            thin, gaps)
+    paired = write_pairs(work, "pairs", m1, m2)
+    n_pairs = len(m1)
+    del m1, m2
+    say(f"phase 11 input: {n_pairs} pairs of 2 x {READ_LEN} bp, fragments "
+        f"{FRAG_MEAN} +- {FRAG_SD} bp, {N_PLANTED} thin stretches of "
+        f"{THIN_BP} bp and {N_PLANTED} gaps of {GAP_BP} bp, made in "
+        f"{time.perf_counter() - t0:.1f} s")
+    gstr = ACGT[genome].tobytes().decode()
+
+    out = os.path.join(work, "mercy")
+    zero_launches(extract, radix_sort)
+    t0 = time.perf_counter()
+    rc = cli.main(["mercy", "-paired", paired, "-kmer", "31", "-cover", "3",
+                   "-outfile", out, "-device", "cuda"])
+    wall = time.perf_counter() - t0
+    got = path_launches(extract, radix_sort)
+    if rc != 0:
+        raise SystemExit(f"mercy exited {rc}")
+    if min(got["extract"], got["sort"]) < 1:
+        raise SystemExit(f"mercy skipped a kernel: {got}")
+    for name, c in got.items():
+        launches[name] = launches.get(name, 0) + c
+    contigs = contig_seqs(os.path.join(out, "part-00000"))
+    with open(os.path.join(out, "metrics.json")) as fh:
+        met = json.load(fh)
+    shutil.rmtree(out)
+    st = assembly_stats(contigs)
+    share = st["total_bp"] / GENOME_BP
+    say(f"phase 11 mercy -kmer 31: {wall:.1f} s wall; contigs "
+        f"{st['n_contigs']} (canonical), total {st['total_bp']} bp = "
+        f"{share:.4f} x genome, N50 {st['n50']}; launches {json.dumps(got)};"
+        f" stages_s {json.dumps(met['stages_s'])}; counters "
+        f"{json.dumps(met['counters'])}")
+    if not 0.95 <= share <= 1.05:
+        raise SystemExit(f"mercy contig total is {share:.4f} x the genome, "
+                         "outside [0.95, 1.05]")
+
+    out = os.path.join(work, "meta_paired")
+    zero_launches(extract, radix_sort)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    rc = cli.main(["meta", "-paired", paired, "-cover", "3", "-accurate",
+                   "-patch", "-scaffold", "-outfile", out, "-device",
+                   "cuda"])
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    got = path_launches(extract, radix_sort)
+    if rc != 0:
+        raise SystemExit(f"meta -accurate -patch -scaffold exited {rc}")
+    need = ["extract", "sort"] + sorted({
+        f"{p}{num_words(k)}" for k in DEFAULT_KLIST if k > 31
+        for p in ("extract_rows", "sort_rows")})
+    if min(got.get(name, 0) for name in need) < 1:
+        raise SystemExit(f"meta -accurate skipped a kernel: {got}")
+    for name, c in got.items():
+        launches[name] = launches.get(name, 0) + c
+    asm = os.path.join(out, "Assembly")
+    lpath = os.path.join(out, "04Patching", "links.tsv")
+    if not os.path.exists(os.path.join(asm, "_SUCCESS")):
+        raise SystemExit("meta -patch left no Assembly/_SUCCESS")
+    if not os.path.exists(lpath):
+        raise SystemExit("meta -patch wrote no 04Patching/links.tsv")
+    with open(lpath) as fh:
+        n_links = len(fh.read().splitlines()) - 1
+    with open(os.path.join(out, "metrics.json")) as fh:
+        met = json.load(fh)
+    contigs = contig_seqs(os.path.join(asm, "part-00000"))
+    st = assembly_stats(contigs)
+    share = st["total_bp"] / GENOME_BP
+    seqs = [s for _h, s in contigs]
+    n_runs = sum(len(re.findall("N+", s)) for s in seqs)
+    joined = "|".join(seqs)
+    probes = [gstr[lo - 40:hi + 40] for lo, hi in thin]
+    bridged = sum(p in joined or revcomp_str(p) in joined for p in probes)
+    rescued = {k: met["counters"].get(f"mercy/rescued_k{k}", 0)
+               for k in DEFAULT_KLIST}
+    say(f"phase 11 meta -accurate -patch -scaffold: {wall:.1f} s wall, peak "
+        f"device memory {peak:.2f} GiB; {n_links} links, {n_runs} N runs, "
+        f"{bridged} of {N_PLANTED} thin stretches bridged; contigs "
+        f"{st['n_contigs']} (canonical), total {st['total_bp']} bp = "
+        f"{share:.4f} x genome, longest {st['longest']}, N50 {st['n50']}; "
+        f"mercy k-mers rescued {json.dumps(rescued)}; launches "
+        f"{json.dumps(got)}; stages_s {json.dumps(met['stages_s'])}; "
+        f"counters {json.dumps(met['counters'])}")
+    if n_links < 1 or n_runs < 1:
+        raise SystemExit(f"meta -patch -scaffold: {n_links} links, {n_runs} "
+                         "N runs; needs at least one of each")
+    if min(rescued[k] for k in (23, 31, 41)) < 1:
+        raise SystemExit(f"no mercy k-mer rescued at some k: {rescued}")
+    if share < 0.95:
+        raise SystemExit(f"meta contig total is {share:.4f} x the genome, "
+                         "under 0.95")
+
+    # 11b. the two patching map forms on phase 11's contigs and pairs
+    steps = os.path.join(out, "steps")
+    pre = [s for s, _l, _r in checkpoint.load_contigs_attrs(steps,
+                                                            "04contigs")]
+    pairs = patching.read_pairs_from_params(Params(input_fastq=paired))
+    times, maps = [], []
+    for form in ("native", "device"):
+        if form == "device":
+            os.environ["REFLEXIV_DEVICE_STAGES"] = "1"
+        try:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            maps.append(patching.map_pairs(pre, pairs, device=dev))
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+        finally:
+            os.environ.pop("REFLEXIV_DEVICE_STAGES", None)
+    (a, la), (b, lb) = maps
+    if not (np.array_equal(la, lb) and all(
+            x.dtype == y.dtype and np.array_equal(x, y)
+            for x, y in zip(a, b))):
+        raise SystemExit("patching map: device form != native hashed form")
+    say(f"phase 11b patching map on {len(pre)} contigs and {len(pairs)} "
+        f"pairs: the ten arrays equal; native hashed {times[0]:.2f} s, "
+        f"device form {times[1]:.2f} s (end index, matrices and map); "
+        f"{int(a[4].sum())} + {int(a[9].sum())} mates mapped")
+    del pairs, maps, a, b
+    shutil.rmtree(out)
+    os.remove(paired.split(",")[0])
+    os.remove(paired.split(",")[1])
+    torch.cuda.empty_cache()
+
+    # 12. kernel path vs plain path on a 200 kb paired library
+    from reflexiv_tpu_torch.dynamic import dynamic_reduction
+    from reflexiv_tpu_torch.meta import dynamic_assembly
+    from reflexiv_tpu_torch.mercy import mercy_assembly
+
+    rng = np.random.default_rng(args.seed + 4)
+    small = rng.integers(0, 4, CHECK_BP, dtype=np.uint8)
+    thin, gaps = planted(CHECK_BP, N_PLANTED_CHECK)
+    spaired = write_pairs(work, "small_pairs",
+                          *simulate_pairs(rng, small, thin, gaps))
+    checks = (
+        ("reduce -accurate", dynamic_reduction,
+         dict(min_kmer_coverage=3, sensitive=True), None),
+        ("meta -accurate -patch -scaffold", dynamic_assembly,
+         dict(min_kmer_coverage=3, sensitive=True, patch=True,
+              scaffold=True),
+         ["Assembly/part-00000", "04Patching/links.tsv"]),
+        ("mercy -kmer 31", mercy_assembly,
+         dict(k=31, min_kmer_coverage=3), ["part-00000"]),
+    )
+    for label, entry, kw, files in checks:
+        walls, dirs = [], []
+        for name, plain in (("kernels", False), ("plain", True)):
+            d = os.path.join(work, f"p12_{label.split()[0]}_{name}")
+            metrics.reset()
+            t0 = time.perf_counter()
+            entry(Params(input_fastq=spaired, output_path=d, **kw),
+                   device=dev, plain=plain)
+            walls.append(time.perf_counter() - t0)
+            dirs.append(d)
+        names = files or tree_files(dirs[0])
+        if files is None and names != tree_files(dirs[1]):
+            raise SystemExit(f"{label}: kernel and plain paths wrote other "
+                             "files")
+        missing = [f for f in names
+                   if not os.path.exists(os.path.join(dirs[0], f))]
+        differ = [f for f in names if f not in missing and not filecmp.cmp(
+            os.path.join(dirs[0], f), os.path.join(dirs[1], f),
+            shallow=False)]
+        if missing or differ or not names:
+            raise SystemExit(f"{label} at {CHECK_BP} bp: missing {missing}, "
+                             f"differ {differ}")
+        say(f"phase 12 {label} {CHECK_BP // 1000} kb: kernel path == plain "
+            f"path, {len(names)} files byte-identical; {walls[0]:.1f} s vs "
+            f"{walls[1]:.1f} s")
+    # the same meta run again from its 04contigs, the map on the device
+    src = os.path.join(work, "p12_meta_kernels")
+    dst = os.path.join(work, "p12_meta_device_map")
+    shutil.copytree(os.path.join(src, "steps"), os.path.join(dst, "steps"))
+    os.environ["REFLEXIV_DEVICE_STAGES"] = "1"
+    try:
+        metrics.reset()
+        dynamic_assembly(Params(input_fastq=spaired, output_path=dst,
+                                **checks[1][2]), device=dev)
+    finally:
+        os.environ.pop("REFLEXIV_DEVICE_STAGES", None)
+    differ = [f for f in checks[1][3] if not filecmp.cmp(
+        os.path.join(src, f), os.path.join(dst, f), shallow=False)]
+    if differ:
+        raise SystemExit(f"meta -patch with the device map differs: {differ}")
+    say("phase 12 meta -patch, REFLEXIV_DEVICE_STAGES=1 vs the native map: "
+        "Assembly/part-00000 and links.tsv byte-identical")
 
 
 if __name__ == "__main__":

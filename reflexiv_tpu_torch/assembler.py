@@ -42,7 +42,7 @@ def initial_records_from_counts(
 
 
 def run_extension_loop(recs: Records, params: Params, *, seed: int = 0
-                       ) -> Records:
+                       ) -> List[pk.PackedRecords]:
     """Iterate packed sort -> join rounds until fixpoint or
     ``max_iterations`` (``assembler._run_extension_loop_packed``).
 
@@ -51,7 +51,12 @@ def run_extension_loop(recs: Records, params: Params, *, seed: int = 0
     census, ``ReflexivDSMain.java:297-326``); from ``min_iterations`` on,
     stop after 12 stable rounds. Every 8th round parks finished rows when
     there are more than max(32, capacity / 8); the pool compacts at quarter
-    occupancy."""
+    occupancy.
+
+    Returns the pool, then the parked batches: the rows in the order the
+    JAX package's ``merge_parked_packed`` lays them out, without merging
+    them into one matrix as wide as the longest row (with many parked
+    rows, as a mercy table's error tips give, that matrix would not fit)."""
     k = params.k
     p = pk.from_records(recs)
     stable_rounds = 0
@@ -88,9 +93,7 @@ def run_extension_loop(recs: Records, params: Params, *, seed: int = 0
             p = pk.compact_packed(p, max(next_pow2(n), 16))
 
     metrics.current().set("run/extension_rounds", it)
-    if parked:
-        p = pk.merge_parked_packed(p, parked)
-    return pk.to_records(p)
+    return [p] + parked
 
 
 def assemble_from_counts(
@@ -106,9 +109,9 @@ def assemble_from_counts(
              n_live, counts.numel())
     metrics.current().set("run/fork_filtered_records", n_live)
     _lap("run/graph", device)
-    recs = run_extension_loop(recs, params, seed=seed)
+    groups = run_extension_loop(recs, params, seed=seed)
     _lap("run/extension", device)
-    contigs = emit_contigs(recs, min_contig=params.min_contig)
+    contigs = emit_contigs(groups, min_contig=params.min_contig)
     _lap("run/emit", device)
     log.info("emitted %d contigs >= %d bp", len(contigs), params.min_contig)
     return contigs

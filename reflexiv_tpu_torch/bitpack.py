@@ -16,6 +16,8 @@ is how count tables cross packages.
 
 Base codes: A=0, C=1, G=2, T=3; any other letter (incl. N) maps to T=3,
 matching ``nucleotideValue`` (``ReflexivDSMain.java:4010-4022``).
+:func:`revcomp_matrix` and :func:`rolling_window_values` are the JAX
+module's numpy helpers, which patching's numpy oracle uses.
 
 torch has no ``<`` or ``<<`` on ``torch.uint32`` on the CPU, so every value
 here is a non-negative int64, and 32-bit arithmetic masks with
@@ -52,6 +54,52 @@ def encode_ascii(seq_bytes: np.ndarray) -> np.ndarray:
 def decode_to_str(codes: np.ndarray) -> str:
     """2-bit code array -> nucleotide string (host-side, numpy)."""
     return CODE_TO_BASE[np.asarray(codes, dtype=np.uint8)].tobytes().decode()
+
+
+def revcomp_matrix(mat: np.ndarray, lens: np.ndarray) -> np.ndarray:
+    """Per-row reverse complement of a padded (R, L) uint8 code matrix
+    (host-side, numpy): one gather mapping column j -> lens-1-j, pad 0."""
+    R, L = mat.shape
+    col = lens[:, None].astype(np.int64) - 1 - np.arange(L)[None, :]
+    ok = col >= 0
+    return np.where(
+        ok, 3 - mat[np.arange(R)[:, None], np.clip(col, 0, L - 1)], 0
+    ).astype(np.uint8)
+
+
+def rolling_window_values(mat: np.ndarray, k: int, *, want_rc: bool = True):
+    """(R, L) uint8 code matrix -> (R, L-k+1) uint64 window values
+    (host-side, numpy), optionally with the reverse-complement values.
+
+    The forward value of window ``mat[i, j:j+k]`` is MSB-first
+    (``sum(base[t] << 2*(k-1-t))``); the rc value is the forward value of
+    the window's reverse complement. Rolled along the window axis with
+    (R,)-sized carry state."""
+    R, L = mat.shape
+    W = L - k + 1
+    if W <= 0:
+        z = np.zeros((R, 0), np.uint64)
+        return (z, z.copy()) if want_rc else (z, None)
+    mask = np.uint64((1 << (2 * k)) - 1)
+    top = np.uint64(2 * (k - 1))
+    two, three = np.uint64(2), np.uint64(3)
+    fwd = np.empty((R, W), np.uint64)
+    rc = np.empty((R, W), np.uint64) if want_rc else None
+    cur = np.zeros(R, np.uint64)
+    curr = np.zeros(R, np.uint64) if want_rc else None
+    for t in range(k - 1):
+        c = mat[:, t].astype(np.uint64)
+        cur = ((cur << two) | c) & mask
+        if want_rc:
+            curr = (curr >> two) | ((three ^ c) << top)
+    for j in range(W):
+        c = mat[:, j + k - 1].astype(np.uint64)
+        cur = ((cur << two) | c) & mask
+        fwd[:, j] = cur
+        if want_rc:
+            curr = (curr >> two) | ((three ^ c) << top)
+            rc[:, j] = curr
+    return fwd, rc
 
 
 def check_k(k: int, max_k: int = MAX_K) -> None:

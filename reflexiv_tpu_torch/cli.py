@@ -1,12 +1,14 @@
-"""Command-line interface: the ``run``, ``meta``, ``counter`` and ``reduce`` commands of ``reflexiv_tpu.cli``.
+"""Command-line interface: the ``run``, ``meta``, ``counter``, ``reduce`` and ``mercy`` commands of ``reflexiv_tpu.cli``.
 
 Same command names and flags as ``reflexiv_tpu/cli.py`` (the reference
 launcher's, ``util/Parameter.java:68-104``), plus ``-device`` (default
 ``cuda``; ``cuda`` without a usable card raises, it never runs on the CPU
-in its place). ``run`` takes k <= 31; ``meta``, ``counter`` and ``reduce``
-take k <= 99. The other commands, ``reduce -accurate`` and ``meta
--accurate``/``-patch``/``-scaffold`` are not ported yet: they print so and
-exit with status 2.
+in its place). ``run`` and ``mercy`` take k <= 31; ``meta``, ``counter``
+and ``reduce`` take k <= 99, and ``reduce``/``meta`` take ``-accurate``
+(mercy k-mers), ``meta`` also ``-patch``/``-scaffold`` (read-pair
+patching). The other commands (``reassembler``, ``merger``,
+``preprocess``, ``stitch``) are not ported yet: they print so and exit
+with status 2.
 
     python -m reflexiv_tpu_torch.cli run -fastq 'reads*.fq.gz' \
         -outfile ./result -kmer 31 -cover 3
@@ -14,8 +16,10 @@ exit with status 2.
         -outfile ./out -kmer 61 -device cpu
     python -m reflexiv_tpu_torch.cli reduce -fastq reads.fq.gz \
         -outfile ./out -cover 3
-    python -m reflexiv_tpu_torch.cli meta -fastq reads.fq.gz \
-        -outfile ./out -cover 3
+    python -m reflexiv_tpu_torch.cli meta -paired m1.fq,m2.fq \
+        -outfile ./out -cover 3 -accurate -patch -scaffold
+    python -m reflexiv_tpu_torch.cli mercy -fastq reads.fq.gz \
+        -outfile ./out -kmer 31 -cover 3
 """
 from __future__ import annotations
 
@@ -36,11 +40,7 @@ COMMANDS = (
     "run", "meta", "counter", "reduce", "reassembler",
     "merger", "mercy", "preprocess", "stitch",
 )
-PORTED = ("run", "meta", "counter", "reduce")
-UNPORTED_FLAGS = {                # refused, exit status 2
-    "reduce": ("accurate",),
-    "meta": ("accurate", "patch", "scaffold"),
-}
+PORTED = ("run", "meta", "counter", "reduce", "mercy")
 
 
 def _add_common(p: argparse.ArgumentParser) -> None:
@@ -251,6 +251,14 @@ def cmd_reduce(params: Params, seed: int, device) -> None:
     dynamic_reduction(params, seed=seed, device=device)
 
 
+def cmd_mercy(params: Params, seed: int, device) -> None:
+    """Single-k assembly over the solid + mercy table (MainOfMercy)."""
+    from .mercy import mercy_assembly
+
+    check_k(params.k, RUN_MAX_K)   # the extension round's keys are one word
+    mercy_assembly(params, seed=seed, device=device)
+
+
 def main(argv=None) -> int:
     logging.basicConfig(
         level=logging.INFO,
@@ -273,11 +281,6 @@ def main(argv=None) -> int:
               f"yet (ported: {', '.join(PORTED)}); use reflexiv_tpu.cli",
               file=sys.stderr)
         return 2
-    for flag in UNPORTED_FLAGS.get(args.command, ()):
-        if getattr(args, flag):
-            print(f"reflexiv-tpu-torch: {args.command} -{flag} is not ported "
-                  "yet; use reflexiv_tpu.cli", file=sys.stderr)
-            return 2
     params = params_from_args(args)
     params.validate()
     device = resolve_device(args.device)

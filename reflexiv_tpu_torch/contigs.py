@@ -8,28 +8,47 @@ IDs are ``>Contig-<len>-(<left>,<right>)-<idx>``.
 from __future__ import annotations
 
 import os
-from typing import List, Tuple
+from typing import Iterable, List, Tuple
 
 import torch
 
 from .bitpack import decode_to_str
-from .records import REPEAT_KILLED, Records
+from .packed import PackedRecords, limbs_for, unpack_seq_matrix
+from .records import REPEAT_KILLED
+
+EMIT_BASES = 1 << 28   # bases unpacked at once when emitting
 
 
-def emit_contigs(recs: Records, *, min_contig: int) -> List[Tuple[str, str]]:
-    """(id, sequence) pairs of the emitted records, in row order. Rows are
-    selected on the device, so only emitted sequences reach the host."""
-    keep = recs.live & (recs.length >= min_contig) & ~(
-        (recs.left <= REPEAT_KILLED) & (recs.right <= REPEAT_KILLED))
-    idx = torch.nonzero(keep).squeeze(1)
-    seq = recs.seq[idx].cpu().numpy()
-    length = recs.length[idx].tolist()
-    left = recs.left[idx].tolist()
-    right = recs.right[idx].tolist()
-    return [
-        (f">Contig-{n}-({lf},{rt})-{i}", decode_to_str(seq[i, :n]))
-        for i, (n, lf, rt) in enumerate(zip(length, left, right))
-    ]
+def emit_contigs(groups: Iterable[PackedRecords], *,
+                 min_contig: int) -> List[Tuple[str, str]]:
+    """(id, sequence) pairs of the emitted rows of packed record groups,
+    group after group, each in row order (``contigs.emit_contigs`` over the
+    JAX package's merged pool). Rows are selected on the device, and only
+    the emitted ones are unpacked, in runs of at most :data:`EMIT_BASES`
+    bases (a longer row on its own)."""
+    out: List[Tuple[str, str]] = []
+    for g in groups:
+        keep = g.live & (g.length >= min_contig) & ~(
+            (g.left <= REPEAT_KILLED) & (g.right <= REPEAT_KILLED))
+        idx = torch.nonzero(keep).squeeze(1)
+        length = g.length[idx].tolist()
+        left = g.left[idx].tolist()
+        right = g.right[idx].tolist()
+        lo = 0
+        while lo < len(length):
+            hi, widest = lo + 1, length[lo]
+            while hi < len(length) and \
+                    (hi - lo + 1) * max(widest, length[hi]) <= EMIT_BASES:
+                widest = max(widest, length[hi])
+                hi += 1
+            seq = unpack_seq_matrix(g.seq[idx[lo:hi], :limbs_for(widest)],
+                                    widest).cpu().numpy()
+            for i in range(lo, hi):
+                n = length[i]
+                out.append((f">Contig-{n}-({left[i]},{right[i]})-{len(out)}",
+                            decode_to_str(seq[i - lo, :n])))
+            lo = hi
+    return out
 
 
 def revcomp_str(s: str) -> str:

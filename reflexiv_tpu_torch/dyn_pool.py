@@ -86,19 +86,22 @@ def pack_seq_matrix_np(bases: np.ndarray) -> np.ndarray:
     pad = LW * BASES_PER_LIMB - L
     if pad:
         bases = np.pad(bases, ((0, 0), (0, pad)))
-    grp = bases.reshape(N, LW, BASES_PER_LIMB).astype(np.uint32)
-    out = np.zeros((N, LW), dtype=np.uint32)
-    for i in range(BASES_PER_LIMB):
-        out |= grp[:, :, i] << np.uint32(30 - 2 * i)
-    return out
+    # four codes per byte, first base high; four bytes read big-endian
+    # are the limb
+    q = bases.reshape(N, LW * 4, 4)
+    packed = (q[:, :, 0] << 6) | (q[:, :, 1] << 4) | (q[:, :, 2] << 2) \
+        | q[:, :, 3]
+    return np.ascontiguousarray(packed, np.uint8).view(">u4") \
+        .reshape(N, LW).astype(np.uint32)
 
 
 def unpack_seq_matrix_np(seq: np.ndarray, L: int) -> np.ndarray:
     """(N, LW) limbs -> (N, L) uint8 codes (``packed.unpack_seq_matrix_np``)."""
     N, LW = seq.shape
-    out = np.empty((N, LW, BASES_PER_LIMB), np.uint8)
-    for i in range(BASES_PER_LIMB):
-        out[:, :, i] = ((seq >> np.uint32(30 - 2 * i)) & 3).astype(np.uint8)
+    byte = np.ascontiguousarray(seq, ">u4").view(np.uint8).reshape(N, LW * 4)
+    out = np.empty((N, LW * 4, 4), np.uint8)
+    for i in range(4):
+        out[:, :, i] = (byte >> (6 - 2 * i)) & 3
     return out.reshape(N, LW * BASES_PER_LIMB)[:, :L]
 
 

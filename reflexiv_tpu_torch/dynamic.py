@@ -43,6 +43,7 @@ from .io import has_success_marker, write_success_marker
 from .join_core import first_per_segment, lexsort_rows, segments
 from .kmer_io import (part_files, read_count_table, write_count_table,
                       write_rows)
+from .mercy import mercy_kmer_table
 from .params import Params
 
 log = logging.getLogger("reflexiv_tpu_torch")
@@ -299,16 +300,16 @@ def dynamic_reduction(params: Params, *, seed: int = 0, device,
     (``Pipelines.java:1665-1733``). ``plain=True`` counts through the
     kernels' plain torch versions (the card's reference path).
 
-    Not ported: ``-accurate`` (mercy k-mers; the CLI refuses it) and
-    ``REFLEXIV_INGEST_BUDGET_MB`` (out-of-core counting; it is not read,
-    and the whole read matrix is loaded). The port runs on one device.
+    With ``-accurate`` each k's table is the solid + mercy table
+    (:func:`mercy.mercy_kmer_table`, ``Pipelines.java:1388-1391``).
+
+    Not ported: ``REFLEXIV_INGEST_BUDGET_MB`` (out-of-core counting; it is
+    not read, and the whole read matrix is loaded). The port runs on one
+    device.
     """
     del seed   # reduce draws nothing at random
     from .io import load_reads_filtered
 
-    if params.sensitive:
-        raise NotImplementedError("reduce -accurate (mercy k-mers) is not "
-                                  "ported")
     for k in params.klist:
         check_k(k)
     device = resolve_device(device)
@@ -349,8 +350,15 @@ def dynamic_reduction(params: Params, *, seed: int = 0, device,
             keys, counts = read_count_table(cdir, k)
             keys, counts = keys.to(device), counts.to(device)
         else:
-            keys, counts = count_k(
-                k, params.min_kmer_coverage, params.max_kmer_coverage)
+            if params.sensitive:
+                with _lap("count", device):
+                    keys, counts = mercy_kmer_table(
+                        mat, lens, k=k, min_cov=params.min_kmer_coverage,
+                        max_cov=params.max_kmer_coverage, device=device,
+                        plain=plain)
+            else:
+                keys, counts = count_k(
+                    k, params.min_kmer_coverage, params.max_kmer_coverage)
             with _lap("write", device):
                 write_count_table(cdir, keys, counts, k)
         with _lap("sort", device):

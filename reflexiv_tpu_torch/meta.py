@@ -11,16 +11,19 @@ Stages, each checkpointed under ``<out>/steps`` (:mod:`.checkpoint`):
      fork-filtered 31-mers and the loop runs again;
   04 read-graph reassembly of fragment-scale contigs (:mod:`.reassemble`)
      and read-consensus end extension (:mod:`.mapping`);
-  05 the extend pass (fixing again over the extended contigs);
-  06 containment dedup.
+  05 the extend pass (fixing again over the extended contigs; skipped
+     under ``REFLEXIV_SKIP_EXTEND_PASS=1``);
+  06 containment dedup;
+then, with ``-patch``/``-scaffold``, read-pair patching (:mod:`.patching`),
+whose link table goes to ``<out>/04Patching/links.tsv``. ``-accurate``
+counts each k of stage 00 through :func:`mercy.mercy_kmer_table`.
 
 The loop is the JAX package's summary-indexed form
 (``REFLEXIV_INDEXED_ALWAYS=1``): one device call per round on all rows.
 Its hash buckets, slab tiers and prefetch thread existed for the TPU
 compiler and are not here; a bucket never split a group and kept pool
 order inside it, so one call makes the same joins. Not ported: the mesh
-path, ``-accurate``, ``-patch``/``-scaffold`` and
-``REFLEXIV_INGEST_BUDGET_MB`` (the CLI refuses the flags).
+path and ``REFLEXIV_INGEST_BUDGET_MB``.
 """
 from __future__ import annotations
 
@@ -51,6 +54,7 @@ from .dynamic import (_count_signature, read_sorted_set, reduce_k_pair,
                       sort_k_records)
 from .graph import build_initial_records
 from .io import has_success_marker
+from .mercy import mercy_kmer_table
 from .params import Params
 from .records import REPEAT_KILLED
 
@@ -523,14 +527,16 @@ def _pool_to_sets(pool, klist):
     sets = {}
     for k in klist:
         m = np.asarray(pool.live) & (pool.length == k)
-        seq = pool.seq[m]
-        sets[k] = (unpack_seq_matrix_np(seq, k) if packed else seq[:, :k],
-                   pool.left[m], pool.right[m])
+        sets[k] = (unpack_seq_matrix_np(pool.seq[m, :limbs_for(k)], k)
+                   if packed else pool.seq[m, :k], pool.left[m],
+                   pool.right[m])
     return sets
 
 
 def _guard_meta_signature(workdir: str, params: Params) -> None:
-    """Discard the checkpoints of a run under another klist or coverage."""
+    """Discard the checkpoints of a run under another klist or coverage.
+    As in the JAX package, ``sensitive`` is not in the signature, so
+    ``-accurate`` resumes the checkpoints of a run without it."""
     sig = {"klist": sorted(params.klist),
            "min_cov": params.min_kmer_coverage,
            "min_error": params.min_error_coverage}
@@ -574,9 +580,6 @@ def assemble_dynamic(bases, lengths, params: Params, *, seed: int = 0,
     tensors; ``dynamic.assemble_dynamic``). With ``workdir`` every stage
     checkpoints and the call resumes from the newest completed stage.
     ``plain=True`` counts through the kernels' plain torch versions."""
-    if params.sensitive:
-        raise NotImplementedError("meta -accurate (mercy k-mers) is not "
-                                  "ported")
     device = resolve_device(device)
     met = metrics.current()
     if workdir:
@@ -604,7 +607,7 @@ def assemble_dynamic(bases, lengths, params: Params, *, seed: int = 0,
         synchronize(device)
         met.lap(name)
 
-    pool = None
+    pool = sorted_sets = None
     if 0 <= resume_idx < 4:
         pool = ckpt.load_records(workdir, stages[resume_idx])
     if resume_idx < 0:
@@ -629,11 +632,20 @@ def assemble_dynamic(bases, lengths, params: Params, *, seed: int = 0,
                                                     f"00partial/k{k}")
         for k in (k for k in klist if k not in sorted_sets):
             mat, lens = on_device()
-            keys, counts = count_kmers_auto(
-                mat, lens, k=k, min_cov=params.min_kmer_coverage,
-                max_cov=params.max_kmer_coverage,
-                front_clip=params.front_clip, end_clip=params.end_clip,
-                partitions=params.partitions, device=device, plain=plain)
+            if params.sensitive:
+                # mercy k-mers enter the ladder per k
+                # (Pipelines.java:1388-1391)
+                keys, counts = mercy_kmer_table(
+                    mat, lens, k=k, min_cov=params.min_kmer_coverage,
+                    max_cov=params.max_kmer_coverage, device=device,
+                    plain=plain)
+            else:
+                keys, counts = count_kmers_auto(
+                    mat, lens, k=k, min_cov=params.min_kmer_coverage,
+                    max_cov=params.max_kmer_coverage,
+                    front_clip=params.front_clip, end_clip=params.end_clip,
+                    partitions=params.partitions, device=device,
+                    plain=plain)
             sorted_sets[k] = sort_k_records(keys, counts, k, params)
             del keys, counts
             log.info("k=%d: %d sorted records", k, len(sorted_sets[k][0]))
@@ -648,7 +660,10 @@ def assemble_dynamic(bases, lengths, params: Params, *, seed: int = 0,
         lap("meta/00count_sort")
 
     if resume_idx < 1:
-        sorted_sets = _pool_to_sets(pool, klist)
+        # the sets stage 00 just made, in the klist order of the pool's
+        # rows, are what ``_pool_to_sets`` would read back from it
+        sorted_sets = ({k: sorted_sets[k] for k in klist} if sorted_sets
+                       else _pool_to_sets(pool, klist))
         for i, (k1, k2) in enumerate(zip(klist, klist[1:])):
             p1, p2 = f"01partial/pair{i}_k{k1}", f"01partial/pair{i}_k{k2}"
             if workdir and ckpt.has_kset(workdir, p1) \
@@ -728,7 +743,7 @@ def assemble_dynamic(bases, lengths, params: Params, *, seed: int = 0,
         raw = [(s2, l, r) for s2, (_s, l, r) in zip(exts, raw)]
         lap("meta/04reassemble_end_extend")
 
-        if raw:
+        if raw and os.environ.get("REFLEXIV_SKIP_EXTEND_PASS") != "1":
             rows = [(encode_ascii(np.frombuffer(s.encode(), np.uint8)),
                      kfix - 1, l, r) for s, l, r in raw]
             if kmax >= 32:
@@ -758,23 +773,38 @@ def assemble_dynamic(bases, lengths, params: Params, *, seed: int = 0,
 
 def dynamic_assembly(params: Params, *, seed: int = 0, device,
                      plain: bool = False) -> None:
-    """The ``meta`` command (``dynamic.dynamic_assembly``, one device, no
-    patching): assemble with checkpoints under ``<out>/steps`` and write
+    """The ``meta`` command (``dynamic.dynamic_assembly``, one device):
+    assemble with checkpoints under ``<out>/steps``, patch with
+    ``-patch``/``-scaffold`` (the link table, when it has rows, to
+    ``<out>/04Patching/links.tsv``), and write
     ``<out>/Assembly/part-00000``, ``_SUCCESS`` and
     ``assembly_report.txt``."""
     from .contigs import assembly_stats, write_assembly_report
     from .io import (load_reads_filtered, write_contigs_fasta,
                      write_success_marker)
 
-    if params.patch or params.scaffold:
-        raise NotImplementedError("meta -patch/-scaffold is not ported")
+    met = metrics.current()
     t0 = time.perf_counter()
     mat, lens = load_reads_filtered(
         params.input_fastq or params.input_fasta, params)
-    metrics.current().add_time("meta/ingest", time.perf_counter() - t0)
+    met.add_time("meta/ingest", time.perf_counter() - t0)
     contigs = assemble_dynamic(
         mat, lens, params, seed=seed, device=device, plain=plain,
         workdir=os.path.join(params.output_path, "steps"))
+    if params.patch or params.scaffold:
+        from .patching import apply_patching
+
+        t0 = time.perf_counter()
+        contigs, links = apply_patching(contigs, params, device=device)
+        if links:
+            ldir = os.path.join(params.output_path, "04Patching")
+            os.makedirs(ldir, exist_ok=True)
+            with open(os.path.join(ldir, "links.tsv"), "w") as fh:
+                fh.write("contig_a\tend_a\tcontig_b\tend_b\tn_links\tgap\n")
+                for row in links:
+                    fh.write("\t".join(str(x) for x in row) + "\n")
+        met.add_time("meta/07patching", time.perf_counter() - t0)
+        met.set("meta/patching_links", len(links))
     out_dir = os.path.join(params.output_path, "Assembly")
     write_contigs_fasta(os.path.join(out_dir, "part-00000"), contigs,
                         gzip_output=params.gzip_output)

@@ -1,11 +1,19 @@
 """ctypes loader for the shared native C++ IO library (``native/``).
 
 The same ``native/libreflexiv_native.so`` that ``reflexiv_tpu.native``
-loads, built on demand with ``make -C native`` (g++ + zlib). Two entry
-points are bound here: :func:`load_reads_native` decodes FASTQ/FASTA files
-straight into 2-bit code matrices, and :func:`dedup_contigs_native` drops
-contigs contained in longer ones. Each returns None when the library
-cannot be built or loaded; the callers then use their Python versions.
+loads, built on demand with ``make -C native`` (g++ + zlib). Bound here:
+:func:`load_reads_native` decodes FASTQ/FASTA files straight into 2-bit
+code matrices, :func:`dedup_contigs_native` drops contigs contained in
+longer ones, and patching's four entries (:func:`end_index_native`,
+:func:`map_pairs_hashed_native`, :func:`map_pairs_native`,
+:func:`best_overlap_native`). Each returns None when the library cannot
+be built or loaded; the callers then use their Python versions.
+
+``rfx_map_seeds`` (``reflexiv_tpu.native.map_seeds_native``) is not bound:
+``patching.patch_contigs`` cannot reach it with the library present. Its
+one caller, ``_map_reads_arrays``, runs only when the native pair mappers
+are off (``REFLEXIV_NATIVE_PATCH=0`` or ``REFLEXIV_DEVICE_STAGES=0``, which
+also skip ``rfx_map_seeds``) or when the patching map runs on the device.
 """
 from __future__ import annotations
 
@@ -30,6 +38,9 @@ _build_failed = False
 SPLIT_MIN_BYTES = 32 << 20   # split single plain FASTQ files above this
 _N_THREADS = max(2, min(16, os.cpu_count() or 2))
 _I64P = ctypes.POINTER(ctypes.c_int64)
+_I8P = ctypes.POINTER(ctypes.c_int8)
+_U8P = ctypes.POINTER(ctypes.c_uint8)
+_U64P = ctypes.POINTER(ctypes.c_uint64)
 
 
 def _get_lib() -> Optional[ctypes.CDLL]:
@@ -87,6 +98,30 @@ def _get_lib() -> Optional[ctypes.CDLL]:
     lib.rfx_dedup.argtypes = [
         ctypes.POINTER(ctypes.c_uint8), _I64P, ctypes.c_int64,
         ctypes.c_int32, ctypes.c_int32, ctypes.POINTER(ctypes.c_uint8),
+    ]
+    # patching: the ten outputs of a pair mapping are, per mate, (contig
+    # int64, end int8, pos int64, strand int8, mapped uint8)
+    mate_outs = [_I64P, _I8P, _I64P, _I8P, _U8P] * 2
+    lib.rfx_end_index.restype = ctypes.c_int64
+    lib.rfx_end_index.argtypes = [
+        _U8P, _I64P, ctypes.c_int64, ctypes.c_int32, ctypes.c_int32,
+        _U64P, _I64P, _I8P, _I64P, _I8P, ctypes.c_int64, ctypes.c_int32,
+    ]
+    lib.rfx_map_pairs_hashed.restype = ctypes.c_int32
+    lib.rfx_map_pairs_hashed.argtypes = [
+        _U8P, _I64P, ctypes.c_int64, ctypes.c_int32, ctypes.c_int32,
+        _U8P, _I64P, _U8P, _I64P, ctypes.c_int64, ctypes.c_int32,
+        *mate_outs, ctypes.c_int32,
+    ]
+    lib.rfx_map_pairs.restype = None
+    lib.rfx_map_pairs.argtypes = [
+        _U8P, _I64P, _U8P, _I64P, ctypes.c_int64,
+        _U64P, ctypes.c_int64, _I64P, _I8P, _I64P, _I8P,
+        ctypes.c_int32, ctypes.c_int32, *mate_outs, ctypes.c_int32,
+    ]
+    lib.rfx_best_overlap.restype = ctypes.c_int32
+    lib.rfx_best_overlap.argtypes = [
+        _U8P, ctypes.c_int64, _U8P, ctypes.c_int64, ctypes.c_int32,
     ]
     _lib = lib
     return lib
@@ -222,3 +257,132 @@ def load_reads_native(
         # changed mid-read: rows would be misplaced in the matrix
         raise OSError(f"native load row mismatch for {paths}")
     return codes, lens
+
+
+# ---------------------------------------------------------------------------
+# patching
+# ---------------------------------------------------------------------------
+
+def _ragged_ascii(strs) -> Tuple[np.ndarray, np.ndarray]:
+    """Concatenated latin-1 bytes of ``strs`` and their (n + 1) offsets."""
+    off = np.zeros(len(strs) + 1, np.int64)
+    np.cumsum([len(s) for s in strs], out=off[1:])
+    return np.frombuffer("".join(strs).encode("latin-1"), np.uint8), off
+
+
+def _ptr(a: np.ndarray, ctype):
+    return a.ctypes.data_as(ctypes.POINTER(ctype))
+
+
+def _mate_outputs(n: int) -> List[np.ndarray]:
+    """Zeroed (contig, end, pos, strand, mapped) arrays for both mates."""
+    return [np.zeros(n, dt) for dt in (np.int64, np.int8, np.int64, np.int8,
+                                       np.uint8) * 2]
+
+
+def _mate_pointers(outs: List[np.ndarray]) -> list:
+    types = (ctypes.c_int64, ctypes.c_int8, ctypes.c_int64, ctypes.c_int8,
+             ctypes.c_uint8) * 2
+    return [_ptr(a, t) for a, t in zip(outs, types)]
+
+
+def _mapped_as_bool(outs: List[np.ndarray]) -> tuple:
+    outs[4] = outs[4].astype(bool)
+    outs[9] = outs[9].astype(bool)
+    return tuple(outs)
+
+
+def end_index_native(contigs: List[str], *, k: int, end_window: int,
+                     threads: int = 0):
+    """Patching's end-window seed index in threaded C++ (``rfx_end_index``):
+    the contents of :func:`reflexiv_tpu_torch.patching._end_index_arrays`
+    (sorted unique uint64 keys and aligned ci/end/pos/strand, the first
+    placement winning, (contig, end)-ambiguous keys dropped). Returns the
+    five arrays, or None when the library is missing or k > 31."""
+    lib = _get_lib()
+    if lib is None or k > 31:
+        return None
+    ascii_cat, offsets = _ragged_ascii(contigs)
+    cap = max(sum(4 * (min(end_window, len(s)) - k + 1) for s in contigs
+                  if min(end_window, len(s)) >= k), 1)
+    keys = np.empty(cap, np.uint64)
+    ci = np.empty(cap, np.int64)
+    end = np.empty(cap, np.int8)
+    pos = np.empty(cap, np.int64)
+    strand = np.empty(cap, np.int8)
+    got = lib.rfx_end_index(
+        _ptr(ascii_cat, ctypes.c_uint8), _ptr(offsets, ctypes.c_int64),
+        len(contigs), k, end_window, _ptr(keys, ctypes.c_uint64),
+        _ptr(ci, ctypes.c_int64), _ptr(end, ctypes.c_int8),
+        _ptr(pos, ctypes.c_int64), _ptr(strand, ctypes.c_int8), cap,
+        threads or _N_THREADS)
+    if got < 0:
+        return None
+    return keys[:got], ci[:got], end[:got], pos[:got], strand[:got]
+
+
+def map_pairs_hashed_native(contigs: List[str], pairs, *, k: int,
+                            end_window: int, stride: int, threads: int = 0):
+    """Patching's whole mapping front end in one C++ call
+    (``rfx_map_pairs_hashed``): a hashed end-window index, then both mates
+    of every pair mapped against it. Output-identical to
+    :func:`end_index_native` + :func:`map_pairs_native`. Returns the ten
+    mapping arrays, or None when the library is missing or k > 31."""
+    lib = _get_lib()
+    if lib is None or k > 31:
+        return None
+    cascii, coff = _ragged_ascii(contigs)
+    a1, off1 = _ragged_ascii([r1 for r1, _ in pairs])
+    a2, off2 = _ragged_ascii([r2 for _, r2 in pairs])
+    outs = _mate_outputs(len(pairs))
+    rc = lib.rfx_map_pairs_hashed(
+        _ptr(cascii, ctypes.c_uint8), _ptr(coff, ctypes.c_int64),
+        len(contigs), k, end_window,
+        _ptr(a1, ctypes.c_uint8), _ptr(off1, ctypes.c_int64),
+        _ptr(a2, ctypes.c_uint8), _ptr(off2, ctypes.c_int64), len(pairs),
+        stride, *_mate_pointers(outs), threads or _N_THREADS)
+    if rc != 0:
+        return None
+    return _mapped_as_bool(outs)
+
+
+def map_pairs_native(pairs, keys: np.ndarray, ci: np.ndarray,
+                     end: np.ndarray, pos: np.ndarray, strand: np.ndarray,
+                     *, k: int, stride: int, threads: int = 0):
+    """Both mates of every pair mapped against a sorted end-window index in
+    C++ (``rfx_map_pairs``): mate 1 forward, mate 2 reverse complement,
+    straight from the pair strings. Returns the ten mapping arrays, or
+    None when the library is missing or k > 31."""
+    lib = _get_lib()
+    if lib is None or k > 31:
+        return None
+    a1, off1 = _ragged_ascii([r1 for r1, _ in pairs])
+    a2, off2 = _ragged_ascii([r2 for _, r2 in pairs])
+    keys = np.ascontiguousarray(keys, dtype=np.uint64)
+    ci64 = np.ascontiguousarray(ci, dtype=np.int64)
+    end8 = np.ascontiguousarray(end, dtype=np.int8)
+    pos64 = np.ascontiguousarray(pos, dtype=np.int64)
+    strand8 = np.ascontiguousarray(strand, dtype=np.int8)
+    outs = _mate_outputs(len(pairs))
+    lib.rfx_map_pairs(
+        _ptr(a1, ctypes.c_uint8), _ptr(off1, ctypes.c_int64),
+        _ptr(a2, ctypes.c_uint8), _ptr(off2, ctypes.c_int64), len(pairs),
+        _ptr(keys, ctypes.c_uint64), len(keys), _ptr(ci64, ctypes.c_int64),
+        _ptr(end8, ctypes.c_int8), _ptr(pos64, ctypes.c_int64),
+        _ptr(strand8, ctypes.c_int8), k, stride, *_mate_pointers(outs),
+        threads or _N_THREADS)
+    return _mapped_as_bool(outs)
+
+
+def best_overlap_native(a: bytes, b: bytes,
+                        min_overlap: int) -> Optional[int]:
+    """Longest exact tail(a)/head(b) overlap of at least ``min_overlap``
+    (0 = none), ``rfx_best_overlap``; None when the library is missing."""
+    lib = _get_lib()
+    if lib is None:
+        return None
+    aa = np.frombuffer(a, np.uint8)
+    bb = np.frombuffer(b, np.uint8)
+    return int(lib.rfx_best_overlap(_ptr(aa, ctypes.c_uint8), len(aa),
+                                    _ptr(bb, ctypes.c_uint8), len(bb),
+                                    min_overlap))

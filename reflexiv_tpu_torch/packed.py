@@ -14,7 +14,7 @@ order as there, row for row.
 """
 from __future__ import annotations
 
-from typing import List, NamedTuple, Tuple
+from typing import List, NamedTuple
 
 import torch
 import torch.nn.functional as F
@@ -81,11 +81,6 @@ def from_records(recs: Records) -> PackedRecords:
         .to(torch.uint8)
     return PackedRecords(pack_seq_matrix(clean), recs.length, recs.left,
                          recs.right, recs.live)
-
-
-def to_records(p: PackedRecords) -> Records:
-    return Records(unpack_seq_matrix(p.seq, p.base_capacity),
-                   p.length, p.left, p.right, p.live)
 
 
 def _limb_lookup(seq: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
@@ -170,48 +165,19 @@ def compact_packed(p: PackedRecords, new_cap: int) -> PackedRecords:
 
 
 def park_finished_rows(p: PackedRecords, fin: torch.Tensor,
-                       parked: List[Tuple]) -> PackedRecords:
+                       parked: List[PackedRecords]) -> PackedRecords:
     """Move rows flagged by ``fin`` out of the active pool into ``parked``
-    (one batch ``(limbs, length, left, right)`` per call, kept on the
-    device); returns the pool with those rows dead."""
+    (one all-live :class:`PackedRecords` batch per call, as wide as its
+    longest row, kept on the device); returns the pool with those rows
+    dead."""
     idx = torch.nonzero(fin).squeeze(1)
     if idx.numel():
         len_b = p.length[idx]
         lim = limbs_for(int(len_b.max()))
-        parked.append((p.seq[idx, :lim], len_b, p.left[idx], p.right[idx]))
+        parked.append(PackedRecords(
+            p.seq[idx, :lim], len_b, p.left[idx], p.right[idx],
+            torch.ones(idx.numel(), dtype=torch.bool, device=idx.device)))
     return p._replace(live=p.live & ~fin)
-
-
-def merge_parked_packed(p: PackedRecords, parked: List[Tuple]) -> PackedRecords:
-    """Active live rows (in row order) followed by the parked batches, in a
-    fresh pool of power-of-two capacity >= 16."""
-    idx = torch.nonzero(p.live).squeeze(1)
-    n_active = idx.numel()
-    total = n_active + sum(b[1].numel() for b in parked)
-    max_limbs = max([p.limb_capacity] + [b[0].shape[1] for b in parked])
-    cap = 16
-    while cap < total:
-        cap <<= 1
-    dev = p.seq.device
-    seq = torch.zeros((cap, max_limbs), dtype=torch.int64, device=dev)
-    length = torch.zeros(cap, dtype=torch.int32, device=dev)
-    left = torch.zeros(cap, dtype=torch.int32, device=dev)
-    right = torch.zeros(cap, dtype=torch.int32, device=dev)
-    live = torch.zeros(cap, dtype=torch.bool, device=dev)
-    seq[:n_active, : p.limb_capacity] = p.seq[idx]
-    length[:n_active] = p.length[idx]
-    left[:n_active] = p.left[idx]
-    right[:n_active] = p.right[idx]
-    at = n_active
-    for s_b, l_b, lft_b, rgt_b in parked:
-        nb = l_b.numel()
-        seq[at: at + nb, : s_b.shape[1]] = s_b
-        length[at: at + nb] = l_b
-        left[at: at + nb] = lft_b
-        right[at: at + nb] = rgt_b
-        at += nb
-    live[:total] = True
-    return PackedRecords(seq, length, left, right, live)
 
 
 def grow_packed(p: PackedRecords, new_bases: int) -> PackedRecords:

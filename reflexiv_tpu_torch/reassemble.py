@@ -150,8 +150,8 @@ def reassemble_arrays(bases, lengths, fragments: List[str], params: Params,
                 for i, f in enumerate(fragments)]
     recs = remove_fragment_kmers(recs, keep, params.k, plain=plain)
     recs = inject_fragments(recs, keep, params.k)
-    recs = run_extension_loop(recs, params, seed=seed)
-    contigs = emit_contigs(recs, min_contig=params.min_contig)
+    contigs = emit_contigs(run_extension_loop(recs, params, seed=seed),
+                           min_contig=params.min_contig)
     attrs = {s: parse_contig_attrs(h) for h, s in contigs}
     out = []
     for i, s in enumerate(dedup_contigs([s for _, s in contigs])):

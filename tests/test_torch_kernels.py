@@ -668,3 +668,73 @@ def test_tile_gather_kernel_matches_plain(tiles, repeated):
     assert partition.GATHER_LAUNCHES == before + 1
     assert torch.equal(got.cpu(), partition.tile_gather_torch(src, starts))
 
+
+
+def _genome_reads(genome_bp, n_reads, L, seed, err=0.01):
+    """Reads of L bases from both strands of a random genome, with
+    substitutions, so k-mers repeat and some are weak."""
+    rng = np.random.default_rng(seed)
+    g = rng.integers(0, 4, genome_bp, dtype=np.uint8)
+    starts = rng.integers(0, genome_bp - L + 1, n_reads)
+    reads = g[starts[:, None] + np.arange(L)]
+    bad = rng.random(reads.shape) < err
+    reads[bad] = rng.integers(0, 4, int(bad.sum()), dtype=np.uint8)
+    flip = rng.random(n_reads) < 0.5
+    reads[flip] = 3 - reads[flip, ::-1]
+    return g, reads
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [31, 41])
+def test_mercy_window_lookup_kernels_match_plain(k):
+    """Mercy's per-window counts through the extraction and sort kernels
+    equal the plain path's, and so do the tables."""
+    from reflexiv_tpu_torch import count, mercy
+
+    dev = _card()
+    _g, reads = _genome_reads(20_000, 6000, 100, seed=k)
+    mat = torch.from_numpy(reads).to(dev)
+    lens = torch.full((len(reads),), 100, dtype=torch.int32, device=dev)
+    keys, counts = count.count_kmers(mat, lens, k=k, min_cov=1, device=dev,
+                                     plain=True)
+    got = mercy.window_counts(mat, lens, keys, counts, k=k)
+    want = mercy.window_counts(mat, lens, keys, counts, k=k, plain=True)
+    for g_, w in zip(got, want):
+        assert torch.equal(g_, w)
+    assert int((got[0] == 1).sum()) > 0 and int((got[0] > 3).sum()) > 0
+    table = mercy.mercy_kmer_table(mat, lens, k=k, min_cov=3, device=dev)
+    plain = mercy.mercy_kmer_table(mat, lens, k=k, min_cov=3, device=dev,
+                                   plain=True)
+    assert all(torch.equal(a, b) for a, b in zip(table, plain))
+    assert int((table[1] < 3).sum()) > 0     # mercy k-mers were rescued
+
+
+@pytest.mark.cuda
+def test_patching_device_map_matches_native(monkeypatch):
+    """The patching map's device form gives the native hashed call's ten
+    arrays, N reads and an N contig included."""
+    from reflexiv_tpu_torch import patching
+    from reflexiv_tpu_torch.contigs import revcomp_str
+
+    dev = _card()
+    g, reads = _genome_reads(30_000, 1, 100, seed=5)
+    gs = "".join("ACGT"[c] for c in g)
+    cuts = list(range(0, 30_001, 3000))
+    contigs = [gs[max(0, a - 20):b] for a, b in zip(cuts, cuts[1:])]
+    contigs = [revcomp_str(c) if i % 2 else c for i, c in enumerate(contigs)]
+    contigs.append(contigs[0][:200] + "N" * 20 + contigs[2][:200])
+    rng = np.random.default_rng(6)
+    pairs = []
+    for s in rng.integers(0, len(gs) - 300, 20_000):
+        pairs.append((gs[s:s + 100], revcomp_str(gs[s + 200:s + 300])))
+    pairs += [("N" * 100, "T" * 100), ("T" * 50 + "N" + "T" * 49, gs[:100])]
+    monkeypatch.delenv("REFLEXIV_DEVICE_STAGES", raising=False)
+    monkeypatch.delenv("REFLEXIV_NATIVE_PATCH", raising=False)
+    want, wlen = patching.map_pairs(contigs, pairs, device=dev)
+    monkeypatch.setenv("REFLEXIV_DEVICE_STAGES", "1")
+    got, glen = patching.map_pairs(contigs, pairs, device=dev)
+    for g_, w in zip(got, want):
+        np.testing.assert_array_equal(g_, w)
+        assert g_.dtype == w.dtype
+    np.testing.assert_array_equal(glen, wlen)
+    assert want[4].sum() > 1000

@@ -290,11 +290,17 @@ def test_cli_reduce_then_meta_matches_jax(tmp_path, monkeypatch):
     assert met["counters"]["meta/live_after_extension"] >= 1
 
 
-@pytest.mark.parametrize("flag", ["-accurate", "-patch", "-scaffold"])
-def test_cli_meta_refuses_unported_flags(tmp_path, capsys, flag):
-    assert cli.main(["meta", "-fastq", "x.fq", flag, "-outfile",
-                     str(tmp_path), "-device", "cpu"]) == 2
-    assert "not ported" in capsys.readouterr().err
+@pytest.mark.parametrize("case", ["3kb", "500bp"])
+def test_skip_extend_pass_matches_jax(monkeypatch, case):
+    """``REFLEXIV_SKIP_EXTEND_PASS=1`` skips stage 05 in both packages."""
+    monkeypatch.setenv("REFLEXIV_SKIP_EXTEND_PASS", "1")
+    mat, lens, jparams, params = _case(case)
+    want = jdyn.assemble_dynamic(mat, lens, jparams, seed=1)
+    m = meta.metrics.reset()
+    got = meta.assemble_dynamic(mat, lens, params, seed=1, device="cpu")
+    assert got == want and got
+    assert "meta/05extend_pass" not in m.timers
+    assert "meta/06finalize" in m.timers
 
 
 def test_jax_checkpoint_resumes_in_the_port(jax_3kb, dense16, tmp_path):
@@ -323,6 +329,21 @@ def test_port_checkpoint_resumes_in_jax(jax_3kb, dense16, tmp_path):
     assert jckpt.latest_stage(str(work)) == "02extended"
     assert jdyn.assemble_dynamic(mat, lens, jparams, seed=1,
                                  workdir=str(work)) == want
+
+
+def test_port_resumes_from_00sorted(jax_3kb, dense16, tmp_path):
+    """A straight run hands stage 00's per-k sets to stage 01 in memory; a
+    run resumed at ``00sorted`` reads them back from the pool: the same
+    contigs."""
+    want, _steps = jax_3kb
+    work = str(tmp_path / "steps")
+    mat, lens, _jparams, params = _case("3kb")
+    assert meta.assemble_dynamic(mat, lens, params, seed=1, device="cpu",
+                                 workdir=work) == want
+    tckpt.clear_from(work, "01reduced")
+    assert tckpt.latest_stage(work) == "00sorted"
+    assert meta.assemble_dynamic(mat, lens, params, seed=1, device="cpu",
+                                 workdir=work) == want
 
 
 def test_in_loop_checkpoint_resumes(jax_3kb, dense16, tmp_path, monkeypatch):

@@ -182,12 +182,6 @@ def test_cli_reduce_resumes_a_cut_ladder_like_jax(reduce_runs, tmp_path):
     assert _tree(tmp_path / "port") == _tree(d / "port")
 
 
-def test_cli_reduce_refuses_accurate(tmp_path, capsys):
-    assert cli.main(["reduce", "-fastq", "x.fq", "-accurate",
-                     "-outfile", str(tmp_path), "-device", "cpu"]) == 2
-    assert "not ported" in capsys.readouterr().err
-
-
 def test_cli_run_keeps_its_one_word_bound(tmp_path):
     with pytest.raises(ValueError, match="k=41"):
         cli.main(["run", "-fastq", "x.fq", "-kmer", "41",
