@@ -72,7 +72,32 @@ script. Phases, one line each:
      ``mercy -kmer 31`` ``part-00000``, byte-identical; then the same
      ``meta`` again from its ``steps/04contigs`` with
      ``REFLEXIV_DEVICE_STAGES=1`` (the device patching map), byte-identical
-     to the native map's files.
+     to the native map's files;
+  13. ``run -kmer 61`` and ``mercy -kmer 41`` on the phase-4 FASTQ: W = 2
+     extraction and row sort launched, canonical totals within [0.95,
+     1.05] x the genome;
+  14. ``preprocess`` on an overlapping paired library of the phase-4
+     genome (2 x 100 bp reads of 180 +- 15 bp fragments, 30x, 0.5%
+     substitutions whose positions are kept), once with the native
+     correction (the default) and once with ``REFLEXIV_DEVICE_STAGES=1``
+     (the device correction through the extraction kernel at k = 23): the
+     share of pairs merged, bases fixed, substitutions against the truth
+     before and after, planted errors removed and bases miscorrected; each
+     form must leave fewer substitutions than it found. The extraction
+     kernel also meets its plain version on 2^20 candidate segments of 45
+     bases;
+  15. ``reassembler -kmer 31`` on the phase-4 reads with 1,000 fragments
+     of 300-500 bp of the genome (fragments passed through, contigs,
+     total), and ``merger`` on the union of phases 4 and 13's contigs (no
+     more contigs out than in, each an input contig);
+  16. ``stitch`` on the phase-4 reads with phase 4's contigs, the ladder
+     21, 31, 61 at full size: per rung the contigs in and out, wall, peak
+     device memory and records entering the loop;
+  and at 200 kb, the kernel path against the plain path: ``run -kmer 61``
+  (equal contig lists), ``preprocess`` with the device correction,
+  ``reassembler``, ``merger`` and ``stitch`` (byte-identical trees), then
+  ``stitch`` over phase 8's ``reduce`` directory (its
+  ``Stitch_kmer/Count_31_sorted`` reused).
 
 Phases 2 and 3 also hold the W-word extraction and row sort (k = 61, 81
 and 95: W = 2, 3 and 4 words) to their plain versions on the main path's
@@ -395,6 +420,7 @@ def main(argv=None) -> int:
         phases_4_to_8(torch, args, dev, work, fq, genome, launches, rows,
                       bounds, library)
         phases_11_12(torch, args, dev, work, genome, launches)
+        phases_13_16(torch, args, dev, work, fq, genome, launches)
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
@@ -490,6 +516,7 @@ def phases_4_to_8(torch, args, dev, work, fq, genome, launches, rows,
     contigs = contig_seqs(part)
     with open(os.path.join(out, "metrics.json")) as fh:
         met = json.load(fh)
+    shutil.copy(part, os.path.join(work, "run31.fa"))   # phases 15-16
     shutil.rmtree(out)
     stats = assembly_stats(contigs)
     share = stats["total_bp"] / GENOME_BP
@@ -993,6 +1020,396 @@ def phases_11_12(torch, args, dev, work, genome, launches) -> None:
     say("phase 12 meta -patch, REFLEXIV_DEVICE_STAGES=1 vs the native map: "
         "Assembly/part-00000 and links.tsv byte-identical")
 
+
+
+# ---------------------------------------------------------------------------
+# phases 13-16: run and mercy above k = 31, preprocess, reassembler and
+# merger, stitch
+# ---------------------------------------------------------------------------
+
+PRE_FRAG_MEAN, PRE_FRAG_SD = 180, 15   # phase 14: mates overlap
+N_REASSEMBLY_FRAGS, N_REASSEMBLY_FRAGS_CHECK = 1000, 40   # 300-500 bp
+
+
+def simulate_overlapping_pairs(rng, genome: np.ndarray):
+    """Phase 14's library at DEPTH x: fragments of PRE_FRAG_MEAN +-
+    PRE_FRAG_SD bp (longer than READ_LEN) on a random strand, read from both
+    ends by READ_LEN bp mates, with ERR substitutions (each to another
+    base). Returns the mates, the fragments (rows of the widest's width,
+    zero past each length) and their lengths."""
+    G, L = len(genome), READ_LEN
+    n = DEPTH * G // (2 * L)
+    ins = np.maximum(np.rint(rng.normal(PRE_FRAG_MEAN, PRE_FRAG_SD, n))
+                     .astype(np.int64), L + 1)
+    s = (rng.random(n) * (G - ins + 1)).astype(np.int64)
+    W = int(ins.max())
+    cols = np.arange(W)
+    past = cols[None, :] >= ins[:, None]
+    frag = genome[np.minimum(s[:, None] + cols, G - 1)]
+    frag[past] = 0
+    flip = rng.random(n) < 0.5
+    rc = 3 - frag[np.arange(n)[:, None],
+                  np.clip(ins[:, None] - 1 - cols, 0, W - 1)]
+    rc[past] = 0
+    frag[flip] = rc[flip]
+    del rc, past
+    m1 = frag[:, :L].copy()
+    m2 = 3 - frag[np.arange(n)[:, None],
+                  ins[:, None] - 1 - np.arange(L)[None, :]]
+    for m in (m1, m2):
+        err = rng.random(m.shape) < ERR
+        m[err] = (m[err] + rng.integers(1, 4, int(err.sum()))) % 4
+    return m1, m2, frag, ins
+
+
+def substitution_counts(before_fq: str, after_fq: str, frag, ins):
+    """Phase 14's quality numbers from preprocess's two FASTQ files, in
+    the same read order: a pair merged into one read (longer than
+    READ_LEN) or its two mates (mate 2 reverse complemented). Each read is
+    held against its fragment; a read merged at another length than its
+    fragment's has no truth and is left out. Returns the substitutions
+    found before correction, left after, removed (wrong before, right
+    after), miscorrected (right before, wrong after) and the reads left
+    out."""
+    from reflexiv_tpu_torch.io import load_reads
+
+    before, lens = load_reads(before_fq)
+    after, lens2 = load_reads(after_fq)
+    if not np.array_equal(lens, lens2) or before.shape != after.shape:
+        raise SystemExit("preprocess: corrected reads differ in length")
+    units = np.where(lens != READ_LEN, 2, 1)
+    prefix = np.cumsum(units) - units
+    if prefix[-1] + units[-1] != 2 * len(ins):
+        raise SystemExit("preprocess: reads do not split into the pairs")
+    pair = prefix // 2
+    second = (units == 1) & (prefix % 2 == 1)
+    start = np.where(second, ins[pair] - READ_LEN, 0)
+    known = (units == 1) | (lens == ins[pair])
+    cols = np.arange(before.shape[1])
+    inside = (cols[None, :] < lens[:, None]) & known[:, None]
+    truth = frag[pair[:, None], np.minimum(start[:, None] + cols,
+                                           frag.shape[1] - 1)]
+    wrong_b = (before != truth) & inside
+    wrong_a = (after != truth) & inside
+    return (int(wrong_b.sum()), int(wrong_a.sum()),
+            int((wrong_b & ~wrong_a).sum()), int((~wrong_b & wrong_a).sum()),
+            int((~known).sum()))
+
+
+def sample_fragments(rng, genome: np.ndarray, n: int):
+    """n substrings of 300-500 bp of the genome on a random strand."""
+    out = []
+    for _ in range(n):
+        ln = int(rng.integers(300, 501))
+        s = int(rng.integers(0, len(genome) - ln + 1))
+        f = genome[s:s + ln]
+        out.append(ACGT[3 - f[::-1] if rng.random() < 0.5 else f]
+                   .tobytes().decode())
+    return out
+
+
+def write_fasta(path: str, seqs) -> None:
+    with open(path, "w") as fh:
+        for i, s in enumerate(seqs):
+            fh.write(f">f{i}\n{s}\n")
+
+
+def run_cli(torch, cli, argv, label):
+    """``cli.main(argv)`` with the launch counts and the device memory
+    peak set to 0 just before; returns (wall, peak GiB, launches,
+    metrics.json)."""
+    from reflexiv_tpu_torch.kernels import extract, radix_sort
+
+    zero_launches(extract, radix_sort)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    rc = cli.main(argv + ["-device", "cuda"])
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    got = path_launches(extract, radix_sort)
+    if rc != 0:
+        raise SystemExit(f"{label} exited {rc}")
+    out = argv[argv.index("-outfile") + 1]
+    with open(os.path.join(out, "metrics.json")) as fh:
+        met = json.load(fh)
+    return wall, peak, got, met
+
+
+def genome_share(contigs, genome):
+    from reflexiv_tpu_torch.contigs import assembly_stats
+
+    st = assembly_stats(contigs)
+    return st, st["total_bp"] / len(genome)
+
+
+def phases_13_16(torch, args, dev, work, fq, genome, launches) -> None:
+    """Phases 13-16 and their 200 kb kernel-vs-plain checks; ``launches``
+    sums the launches of the main-path runs, each counted from 0."""
+    from reflexiv_tpu_torch import cli
+    from reflexiv_tpu_torch.kernels import extract
+
+    def tally(got):
+        for name, c in got.items():
+            launches[name] = launches.get(name, 0) + c
+
+    # 13. run -kmer 61 and mercy -kmer 41
+    for cmd, k in (("run", 61), ("mercy", 41)):
+        out = os.path.join(work, f"{cmd}{k}")
+        wall, peak, got, met = run_cli(
+            torch, cli, [cmd, "-fastq", fq, "-kmer", str(k), "-cover", "3",
+                         "-outfile", out], f"{cmd} -kmer {k}")
+        if min(got.get("extract_rows2", 0), got.get("sort_rows2", 0)) < 1:
+            raise SystemExit(f"{cmd} -kmer {k} skipped a W = 2 kernel: {got}")
+        tally(got)
+        contigs = contig_seqs(os.path.join(out, "part-00000"))
+        st, share = genome_share(contigs, genome)
+        say(f"phase 13 {cmd} -kmer {k}: {wall:.1f} s wall, peak device "
+            f"memory {peak:.2f} GiB; contigs {st['n_contigs']} (canonical),"
+            f" total {st['total_bp']} bp = {share:.4f} x genome, N50 "
+            f"{st['n50']}; launches {json.dumps(got)}; stages_s "
+            f"{json.dumps(met['stages_s'])}")
+        if not 0.95 <= share <= 1.05:
+            raise SystemExit(f"{cmd} -kmer {k}: total {share:.4f} x the "
+                             "genome, outside [0.95, 1.05]")
+        if cmd == "run":
+            shutil.copy(os.path.join(out, "part-00000"),
+                        os.path.join(work, "run61.fa"))
+        shutil.rmtree(out)
+
+    # 14. preprocess on an overlapping paired library, both correction forms
+    t0 = time.perf_counter()
+    m1, m2, frag, ins = simulate_overlapping_pairs(
+        np.random.default_rng(args.seed + 5), genome)
+    pre_pairs = write_pairs(work, "pre_pairs", m1, m2)
+    say(f"phase 14 input: {len(ins)} pairs of 2 x {READ_LEN} bp, fragments "
+        f"{PRE_FRAG_MEAN} +- {PRE_FRAG_SD} bp, {ERR} substitutions, made in "
+        f"{time.perf_counter() - t0:.1f} s")
+    del m1, m2
+    seg_checked = False
+    for form, env in (("native", None), ("device", "1")):
+        out = os.path.join(work, f"pre_{form}")
+        if env:
+            os.environ["REFLEXIV_DEVICE_STAGES"] = env
+        try:
+            wall, peak, got, met = run_cli(
+                torch, cli, ["preprocess", "-fastq", pre_pairs, "-outfile",
+                             out], f"preprocess ({form})")
+        finally:
+            os.environ.pop("REFLEXIV_DEVICE_STAGES", None)
+        if min(got["extract"], got["sort"]) < 1:
+            raise SystemExit(f"preprocess ({form}) skipped a kernel: {got}")
+        tally(got)
+        c = met["counters"]
+        found, left, removed, mis, unknown = substitution_counts(
+            os.path.join(out, "Read_Paired_Merged", "part-00000.fq"),
+            os.path.join(out, "Read_Repartitioned", "part-00000.fq"),
+            frag, ins)
+        say(f"phase 14 preprocess, {form} correction: {wall:.1f} s wall, "
+            f"peak device memory {peak:.2f} GiB; pairs merged "
+            f"{c['preprocess/pairs_merged']} of {c['preprocess/pairs']} = "
+            f"{c['preprocess/pairs_merged'] / c['preprocess/pairs']:.4f}; "
+            f"bases fixed {c['preprocess/bases_fixed']}; substitutions "
+            f"{found} before, {left} after; planted removed {removed}, "
+            f"miscorrected {mis} ({unknown} reads merged off their fragment "
+            f"length, not scored); launches {json.dumps(got)}; stages_s "
+            f"{json.dumps(met['stages_s'])}")
+        if not left < found:
+            raise SystemExit(f"preprocess ({form}): {left} substitutions "
+                             f"left of {found}")
+        if not seg_checked:
+            # the device form's candidate segments: (N, 2k-1) at k = 23
+            from reflexiv_tpu_torch.io import load_reads
+
+            mat, lens = load_reads(os.path.join(out, "Read_Repartitioned",
+                                                "part-00000.fq"))
+            g = np.random.default_rng(args.seed)
+            r = g.integers(0, len(lens), 1 << 20)
+            p = 22 + (g.random(1 << 20) * (lens[r] - 44)).astype(np.int64)
+            seg = torch.from_numpy(mat[r[:, None], p[:, None]
+                                       + np.arange(-22, 23)]).to(dev)
+            slens = torch.full((seg.shape[0],), 45, dtype=torch.int32,
+                               device=dev)
+            err, ms, pms = compare(
+                torch, "extract k=23 segments",
+                lambda: extract.extract_canonical_keys(seg, slens, k=23),
+                lambda: extract.extract_canonical_keys_torch(seg, slens,
+                                                             k=23))
+            say(f"phase 14 extract k=23 on {seg.shape[0]} candidate "
+                f"segments of 45 bases: equal; kernel {ms:.3f} ms, plain "
+                f"{pms:.3f} ms")
+            del seg, slens, mat
+            seg_checked = True
+        shutil.rmtree(out)
+    del frag, ins
+    torch.cuda.empty_cache()
+
+    # 15. reassembler with 1,000 fragments; merger on phases 4 and 13
+    frags = os.path.join(work, "frags.fa")
+    write_fasta(frags, sample_fragments(np.random.default_rng(args.seed + 6),
+                                        genome, N_REASSEMBLY_FRAGS))
+    out = os.path.join(work, "reassembler")
+    wall, peak, got, met = run_cli(
+        torch, cli, ["reassembler", "-fastq", fq, "-frag", frags, "-kmer",
+                     "31", "-cover", "3", "-outfile", out], "reassembler")
+    if min(got["extract"], got["sort"]) < 1:
+        raise SystemExit(f"reassembler skipped a kernel: {got}")
+    tally(got)
+    contigs = contig_seqs(os.path.join(out, "Assemble_31", "part-00000"))
+    st, share = genome_share(contigs, genome)
+    say(f"phase 15 reassembler -kmer 31, {N_REASSEMBLY_FRAGS} fragments of "
+        f"300-500 bp: {wall:.1f} s wall, peak device memory {peak:.2f} GiB;"
+        f" {met['counters'].get('reassemble/passthrough')} passed through;"
+        f" contigs {len(contigs)} ({st['n_contigs']} canonical), total "
+        f"{st['total_bp']} bp = {share:.4f} x genome, N50 {st['n50']}; "
+        f"launches {json.dumps(got)}; stages_s {json.dumps(met['stages_s'])}")
+    shutil.rmtree(out)
+    union = [s for f in ("run31.fa", "run61.fa")
+             for _h, s in contig_seqs(os.path.join(work, f))]
+    ufa = os.path.join(work, "union.fa")
+    write_fasta(ufa, union)
+    out = os.path.join(work, "merger")
+    t0 = time.perf_counter()
+    if cli.main(["merger", "-fasta", ufa, "-outfile", out]) != 0:
+        raise SystemExit("merger failed")
+    wall = time.perf_counter() - t0
+    merged = [s for _h, s in contig_seqs(os.path.join(out, "Merged",
+                                                      "part-00000"))]
+    if len(merged) > len(union) or not set(merged) <= set(union):
+        raise SystemExit(f"merger: {len(merged)} contigs out of "
+                         f"{len(union)}, or one not among them")
+    say(f"phase 15 merger on phases 4 and 13's contigs: {len(union)} -> "
+        f"{len(merged)} contigs, each an input contig; {wall:.1f} s wall")
+    shutil.rmtree(out)
+
+    # 16. stitch at full size, then once over a reduce directory
+    out = os.path.join(work, "stitch")
+    n_in = len(contig_seqs(os.path.join(work, "run31.fa")))
+    wall, peak, got, met = run_cli(
+        torch, cli, ["stitch", "-fastq", fq, "-frag",
+                     os.path.join(work, "run31.fa"), "-outfile", out],
+        "stitch")
+    if min(got["extract"], got["sort"], got.get("extract_rows2", 0),
+           got.get("sort_rows2", 0)) < 1:
+        raise SystemExit(f"stitch skipped a kernel: {got}")
+    tally(got)
+    c, t = met["counters"], met["stages_s"]
+    for k in (21, 31, 61):
+        say(f"phase 16 stitch rung k={k}: contigs in {n_in}, out "
+            f"{c[f'stitch/contigs_k{k}']}; {t[f'stitch/k{k}']:.1f} s; "
+            f"{c[f'stitch/records_k{k}']} records entering the loop; peak "
+            f"device memory so far "
+            f"{c.get(f'stitch/peak_bytes_k{k}', 0) / 2**30:.2f} GiB")
+        n_in = c[f"stitch/contigs_k{k}"]
+    contigs = contig_seqs(os.path.join(out, "Assembly_stitched_61",
+                                       "part-00000"))
+    st, share = genome_share(contigs, genome)
+    say(f"phase 16 stitch: {wall:.1f} s wall, peak device memory {peak:.2f}"
+        f" GiB; contigs {st['n_contigs']} (canonical), total "
+        f"{st['total_bp']} bp = {share:.4f} x genome, longest "
+        f"{st['longest']}, N50 {st['n50']}; launches {json.dumps(got)}")
+    if share < 0.95:
+        raise SystemExit(f"stitch: total {share:.4f} x the genome")
+    shutil.rmtree(out)
+
+    # the 200 kb checks: kernel path vs plain path, byte-identical trees
+    checks_200kb(torch, args, dev, work)
+
+
+def checks_200kb(torch, args, dev, work) -> None:
+    """``run -kmer 61``, ``preprocess`` (device correction),
+    ``reassembler``, ``merger`` and ``stitch`` with the kernels and with
+    their plain versions on the 200 kb genome; ``stitch`` also once over
+    phase 8's ``reduce`` directory (its ``Stitch_kmer/Count_31_sorted``)."""
+    from reflexiv_tpu_torch import count, metrics
+    from reflexiv_tpu_torch.assembler import (assemble_from_counts,
+                                              assemble_reads)
+    from reflexiv_tpu_torch.merger import merge_contigs_cmd
+    from reflexiv_tpu_torch.params import Params
+    from reflexiv_tpu_torch.preprocess import preprocess
+    from reflexiv_tpu_torch.reassemble import reassemble
+    from reflexiv_tpu_torch.stitch import stitch
+
+    g_small, small = simulate(np.random.default_rng(args.seed + 1), CHECK_BP)
+    sfq = os.path.join(work, "small.fq")
+    slens = np.full(small.shape[0], READ_LEN, np.int32)
+    params = Params(k=61, min_kmer_coverage=3)
+    metrics.reset()
+    with_kernels = assemble_reads(small, slens, params, seed=0, device=dev)
+    keys, counts = count.count_kmers(small, slens, k=61, min_cov=3,
+                                     device=dev, plain=True)
+    plain_path = assemble_from_counts(keys, counts, params, seed=0,
+                                      device=dev)
+    if not with_kernels or with_kernels != plain_path:
+        raise SystemExit("run -kmer 61 at 200 kb: kernel path != plain path")
+    say(f"checks 200 kb run -kmer 61: kernel path == plain path, "
+        f"{len(with_kernels)} contigs")
+    sfa = os.path.join(work, "small_contigs.fa")
+    write_fasta(sfa, [s for _h, s in with_kernels])
+    m1, m2, _f, _i = simulate_overlapping_pairs(
+        np.random.default_rng(args.seed + 7), g_small)
+    spairs = write_pairs(work, "small_pre", m1, m2)
+    sfrags = os.path.join(work, "small_frags.fa")
+    write_fasta(sfrags, sample_fragments(np.random.default_rng(args.seed + 8),
+                                         g_small, N_REASSEMBLY_FRAGS_CHECK))
+    checks = (
+        ("preprocess", preprocess, dict(input_fastq=spairs)),
+        ("reassembler", reassemble, dict(k=31, min_kmer_coverage=3,
+                                         input_fastq=sfq,
+                                         input_contig=sfrags)),
+        ("stitch", stitch, dict(input_fastq=sfq, input_contig=sfa)),
+    )
+    for label, entry, kw in checks:
+        dirs, walls = [], []
+        for name, plain in (("kernels", False), ("plain", True)):
+            d = os.path.join(work, f"c200_{label}_{name}")
+            metrics.reset()
+            if label == "preprocess":    # the device correction
+                os.environ["REFLEXIV_DEVICE_STAGES"] = "1"
+            try:
+                t0 = time.perf_counter()
+                entry(Params(output_path=d, **kw), device=dev, plain=plain)
+                walls.append(time.perf_counter() - t0)
+            finally:
+                os.environ.pop("REFLEXIV_DEVICE_STAGES", None)
+            dirs.append(d)
+        same_trees(label, *dirs)
+        say(f"checks 200 kb {label}: kernel path == plain path, "
+            f"{len(tree_files(dirs[0]))} files byte-identical; "
+            f"{walls[0]:.1f} s vs {walls[1]:.1f} s")
+    # merger has no kernel: it runs on each path's reassembler and stitch
+    # contigs, and the two trees must agree too
+    for name in ("kernels", "plain"):
+        union = os.path.join(work, f"c200_union_{name}.fa")
+        write_fasta(union, [s for rel in (
+            f"c200_reassembler_{name}/Assemble_31/part-00000",
+            f"c200_stitch_{name}/Assembly_stitched_61/part-00000")
+            for _h, s in contig_seqs(os.path.join(work, rel))])
+        merge_contigs_cmd(Params(input_fasta=union, output_path=os.path.join(
+            work, f"c200_merger_{name}")))
+    same_trees("merger", *(os.path.join(work, f"c200_merger_{n}")
+                           for n in ("kernels", "plain")))
+    say("checks 200 kb merger on each path's contigs: byte-identical")
+    # stitch over phase 8's reduce directory reuses its k = 31 table
+    metrics.reset()
+    stitch(Params(input_fastq=sfq, input_contig=sfa,
+                  output_path=os.path.join(work, "kernels")), device=dev)
+    rows31 = metrics.current().counts.get("stitch/table_rows_k31", 0)
+    if rows31 < 1:
+        raise SystemExit("stitch over a reduce directory did not reuse "
+                         "Stitch_kmer/Count_31_sorted")
+    say(f"checks 200 kb stitch over phase 8's reduce directory: "
+        f"Stitch_kmer/Count_31_sorted reused ({rows31} rows), "
+        f"{metrics.current().counts['stitch/contigs_k61']} contigs")
+
+
+def same_trees(label: str, a: str, b: str) -> None:
+    files = tree_files(a)
+    if not files or files != tree_files(b):
+        raise SystemExit(f"{label}: kernel and plain paths wrote other files")
+    differ = [f for f in files if not filecmp.cmp(
+        os.path.join(a, f), os.path.join(b, f), shallow=False)]
+    if differ:
+        raise SystemExit(f"{label} at {CHECK_BP} bp: files differ: {differ}")
 
 if __name__ == "__main__":
     sys.exit(main())

@@ -41,17 +41,55 @@ def initial_records_from_counts(
     return compact(recs, max(next_pow2(n_live), 16)), n_live
 
 
-def run_extension_loop(recs: Records, params: Params, *, seed: int = 0
-                       ) -> List[pk.PackedRecords]:
-    """Iterate packed sort -> join rounds until fixpoint or
-    ``max_iterations`` (``assembler._run_extension_loop_packed``).
+def extension_fixpoint(p, step, finished, park, params: Params) -> list:
+    """The loop control of ``assembler._run_extension_loop_packed`` over
+    any pool with ``live`` and ``capacity``: ``step(p, it)`` runs round
+    ``it`` and returns ``(pool, live count)``, ``finished(p)`` is the
+    census, ``park(p, fin, parked)`` moves rows out.
 
     Stop rules: once the live count has been stable for a multiple of 3
     rounds, stop if no live record has a potential partner left (the
     census, ``ReflexivDSMain.java:297-326``); from ``min_iterations`` on,
     stop after 12 stable rounds. Every 8th round parks finished rows when
     there are more than max(32, capacity / 8); the pool compacts at quarter
-    occupancy.
+    occupancy (live rows first, in row order). Returns the pool, then the
+    parked batches."""
+    stable_rounds = 0
+    prev_count = int(p.live.sum())
+    parked: list = []
+    it = 0
+    for it in range(1, params.max_iterations + 1):
+        p, live_n = step(p, it)
+        n = int(live_n)
+        if n == prev_count:
+            stable_rounds += 1
+        else:
+            stable_rounds = 0
+            prev_count = n
+        if stable_rounds >= 3 and stable_rounds % 3 == 0:
+            if int(finished(p).sum()) == n:
+                break
+        if it >= params.min_iterations and stable_rounds >= 12:
+            break
+        if it % 8 == 0:
+            fin = finished(p)
+            n_fin = int(fin.sum())
+            if n_fin > max(32, p.capacity // 8):
+                p = park(p, fin, parked)
+                n -= n_fin
+                prev_count = n
+        cap = p.capacity
+        if n <= cap // 4 and cap > 64:
+            p = pk.compact_packed(p, max(next_pow2(n), 16))
+    metrics.current().set("run/extension_rounds", it)
+    return [p] + parked
+
+
+def run_extension_loop(recs: Records, params: Params, *, seed: int = 0
+                       ) -> List[pk.PackedRecords]:
+    """Iterate packed sort -> join rounds until fixpoint or
+    ``max_iterations`` (:func:`extension_fixpoint`), growing the pool's
+    width before a round whose longest merge may not fit.
 
     Returns the pool, then the parked batches: the rows in the order the
     JAX package's ``merge_parked_packed`` lays them out, without merging
@@ -59,41 +97,18 @@ def run_extension_loop(recs: Records, params: Params, *, seed: int = 0
     rows, as a mercy table's error tips give, that matrix would not fit)."""
     k = params.k
     p = pk.from_records(recs)
-    stable_rounds = 0
-    prev_count = int(p.live.sum())
     need = 2 * int(torch.where(p.live, p.length, 0).max()) - (k - 1)
-    parked: list = []
-    it = 0
-    for it in range(1, params.max_iterations + 1):
+
+    def step(p, it):
+        nonlocal need
         if need > p.base_capacity:
             p = pk.grow_packed(p, next_pow2(need))
         p, live_n, need_t = pk.extension_round_packed(p, seed + it, k=k)
-        n = int(live_n)
         need = int(need_t)
-        if n == prev_count:
-            stable_rounds += 1
-        else:
-            stable_rounds = 0
-            prev_count = n
-        if stable_rounds >= 3 and stable_rounds % 3 == 0:
-            fin = pk.finished_mask_packed(p, k)
-            if int(fin.sum()) == n:
-                break
-        if it >= params.min_iterations and stable_rounds >= 12:
-            break
-        if it % 8 == 0:
-            fin = pk.finished_mask_packed(p, k)
-            n_fin = int(fin.sum())
-            if n_fin > max(32, p.capacity // 8):
-                p = pk.park_finished_rows(p, fin, parked)
-                n -= n_fin
-                prev_count = n
-        cap = p.capacity
-        if n <= cap // 4 and cap > 64:
-            p = pk.compact_packed(p, max(next_pow2(n), 16))
+        return p, live_n
 
-    metrics.current().set("run/extension_rounds", it)
-    return [p] + parked
+    return extension_fixpoint(p, step, lambda p: pk.finished_mask_packed(p, k),
+                              pk.park_finished_rows, params)
 
 
 def assemble_from_counts(

@@ -1,14 +1,11 @@
-"""Command-line interface: the ``run``, ``meta``, ``counter``, ``reduce`` and ``mercy`` commands of ``reflexiv_tpu.cli``.
+"""Command-line interface: the nine commands of ``reflexiv_tpu.cli``.
 
 Same command names and flags as ``reflexiv_tpu/cli.py`` (the reference
 launcher's, ``util/Parameter.java:68-104``), plus ``-device`` (default
 ``cuda``; ``cuda`` without a usable card raises, it never runs on the CPU
-in its place). ``run`` and ``mercy`` take k <= 31; ``meta``, ``counter``
-and ``reduce`` take k <= 99, and ``reduce``/``meta`` take ``-accurate``
-(mercy k-mers), ``meta`` also ``-patch``/``-scaffold`` (read-pair
-patching). The other commands (``reassembler``, ``merger``,
-``preprocess``, ``stitch``) are not ported yet: they print so and exit
-with status 2.
+in its place). Every k-taking command takes 1 <= k <= 99
+(``bitpack.MAX_K``); ``reduce``/``meta`` take ``-accurate`` (mercy
+k-mers), ``meta`` also ``-patch``/``-scaffold`` (read-pair patching).
 
     python -m reflexiv_tpu_torch.cli run -fastq 'reads*.fq.gz' \
         -outfile ./result -kmer 31 -cover 3
@@ -19,7 +16,14 @@ with status 2.
     python -m reflexiv_tpu_torch.cli meta -paired m1.fq,m2.fq \
         -outfile ./out -cover 3 -accurate -patch -scaffold
     python -m reflexiv_tpu_torch.cli mercy -fastq reads.fq.gz \
-        -outfile ./out -kmer 31 -cover 3
+        -outfile ./out -kmer 61 -cover 3
+    python -m reflexiv_tpu_torch.cli preprocess -fastq m1.fq,m2.fq \
+        -outfile ./pre
+    python -m reflexiv_tpu_torch.cli reassembler -fastq reads.fq \
+        -frag contigs.fa -outfile ./re -kmer 31
+    python -m reflexiv_tpu_torch.cli merger -fasta contigs.fa -outfile ./m
+    python -m reflexiv_tpu_torch.cli stitch -fastq reads.fq \
+        -frag contigs.fa -outfile ./st
 """
 from __future__ import annotations
 
@@ -30,7 +34,6 @@ import sys
 import time
 
 from . import __version__, metrics
-from .bitpack import RUN_MAX_K, check_k
 from .device import resolve_device, synchronize
 from .params import DEFAULT_KLIST, Params
 
@@ -40,7 +43,7 @@ COMMANDS = (
     "run", "meta", "counter", "reduce", "reassembler",
     "merger", "mercy", "preprocess", "stitch",
 )
-PORTED = ("run", "meta", "counter", "reduce", "mercy")
+PORTED = COMMANDS
 
 
 def _add_common(p: argparse.ArgumentParser) -> None:
@@ -207,7 +210,6 @@ def cmd_run(params: Params, seed: int, device) -> None:
     from .io import write_contigs_fasta, write_success_marker
     from .kmer_io import read_count_table
 
-    check_k(params.k, RUN_MAX_K)   # the extension round's keys are one word
     met = metrics.current()
     if params.input_kmer:
         keys, counts = read_count_table(params.input_kmer, params.k)
@@ -255,8 +257,37 @@ def cmd_mercy(params: Params, seed: int, device) -> None:
     """Single-k assembly over the solid + mercy table (MainOfMercy)."""
     from .mercy import mercy_assembly
 
-    check_k(params.k, RUN_MAX_K)   # the extension round's keys are one word
     mercy_assembly(params, seed=seed, device=device)
+
+
+def cmd_reassembler(params: Params, seed: int, device) -> None:
+    """Fragments extended through the read graph (MainOfReAssembler)."""
+    from .reassemble import reassemble
+
+    reassemble(params, seed=seed, device=device)
+
+
+def cmd_merger(params: Params, seed: int, device) -> None:
+    """Containment dedup of a contig set (MainOfMerger)."""
+    from .merger import merge_contigs_cmd
+
+    del seed, device   # host string work
+    merge_contigs_cmd(params)
+
+
+def cmd_preprocess(params: Params, seed: int, device) -> None:
+    """Pair merging and k-mer-spectrum correction (MainOfPreProcessing)."""
+    from .preprocess import preprocess
+
+    del seed   # preprocessing draws nothing at random
+    preprocess(params, device=device)
+
+
+def cmd_stitch(params: Params, seed: int, device) -> None:
+    """Contigs joined across thin gaps by read k-mers, k = 21, 31, 61."""
+    from .stitch import stitch
+
+    stitch(params, seed=seed, device=device)
 
 
 def main(argv=None) -> int:
@@ -276,11 +307,6 @@ def main(argv=None) -> int:
     for cmd in COMMANDS:
         _add_common(sub.add_parser(cmd))
     args = parser.parse_args(argv)
-    if args.command not in PORTED:
-        print(f"reflexiv-tpu-torch: command {args.command!r} is not ported "
-              f"yet (ported: {', '.join(PORTED)}); use reflexiv_tpu.cli",
-              file=sys.stderr)
-        return 2
     params = params_from_args(args)
     params.validate()
     device = resolve_device(args.device)

@@ -62,6 +62,43 @@ def iter_fastq(paths: Iterable[str]) -> Iterator[bytes]:
                     yield seq
 
 
+def iter_fastq_with_quals(paths: Iterable[str]
+                          ) -> Iterator[Tuple[bytes, bytes]]:
+    """Yield (sequence, quality string) byte pairs from FASTQ files, for
+    quality-aware correction (``-trustqual``)."""
+    for path in paths:
+        with _open_maybe_gzip(path) as fh:
+            while True:
+                header = fh.readline()
+                if not header:
+                    break
+                seq = fh.readline().strip()
+                fh.readline()  # +
+                qual = fh.readline().strip()
+                if seq:
+                    yield seq, qual
+
+
+def load_reads_with_quals(pattern: str
+                          ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """FASTQ reads and their phred scores: ``(codes, lens, quals)``, where
+    ``quals`` is an (R, L) uint8 matrix of ASCII - 33 floored at 0, aligned
+    with the code matrix (pad 0). Python reader only."""
+    seqs: List[bytes] = []
+    quals: List[bytes] = []
+    for s, q in iter_fastq_with_quals(expand_paths(pattern)):
+        seqs.append(s)
+        quals.append(q)
+    mat, lens = reads_to_matrix(seqs)
+    qmat = np.zeros_like(mat)
+    for i, q in enumerate(quals):
+        n = min(len(q), int(lens[i]))
+        if n:
+            arr = np.frombuffer(q[:n], np.uint8).astype(np.int16) - 33
+            qmat[i, :n] = np.clip(arr, 0, 255).astype(np.uint8)
+    return mat, lens, qmat
+
+
 def iter_fasta(paths: Iterable[str]) -> Iterator[Tuple[str, bytes]]:
     """Yield (name, sequence bytes) from FASTA files (plain, .gz or .bz2)."""
     for path in paths:

@@ -4,9 +4,11 @@ The same ``native/libreflexiv_native.so`` that ``reflexiv_tpu.native``
 loads, built on demand with ``make -C native`` (g++ + zlib). Bound here:
 :func:`load_reads_native` decodes FASTQ/FASTA files straight into 2-bit
 code matrices, :func:`dedup_contigs_native` drops contigs contained in
-longer ones, and patching's four entries (:func:`end_index_native`,
+longer ones, patching's four entries (:func:`end_index_native`,
 :func:`map_pairs_hashed_native`, :func:`map_pairs_native`,
-:func:`best_overlap_native`). Each returns None when the library cannot
+:func:`best_overlap_native`), and preprocessing's pair overlap
+(:func:`merge_pairs_native`) and k-mer-spectrum correction
+(:func:`correct_reads_native`). Each returns None when the library cannot
 be built or loaded; the callers then use their Python versions.
 
 ``rfx_map_seeds`` (``reflexiv_tpu.native.map_seeds_native``) is not bound:
@@ -122,6 +124,19 @@ def _get_lib() -> Optional[ctypes.CDLL]:
     lib.rfx_best_overlap.restype = ctypes.c_int32
     lib.rfx_best_overlap.argtypes = [
         _U8P, ctypes.c_int64, _U8P, ctypes.c_int64, ctypes.c_int32,
+    ]
+    lib.rfx_merge_pairs.restype = None
+    lib.rfx_merge_pairs.argtypes = [
+        _U8P, ctypes.POINTER(ctypes.c_int32), ctypes.c_int64,
+        _U8P, ctypes.POINTER(ctypes.c_int32), ctypes.c_int64,
+        ctypes.c_int64, ctypes.c_int32, ctypes.c_double,
+        ctypes.POINTER(ctypes.c_int32),
+    ]
+    lib.rfx_correct.restype = ctypes.c_int64
+    lib.rfx_correct.argtypes = [
+        _U8P, ctypes.POINTER(ctypes.c_int32), ctypes.c_int64, ctypes.c_int64,
+        _U64P, ctypes.c_int64, ctypes.c_int32, _U8P, ctypes.c_int32,
+        ctypes.c_int32,
     ]
     _lib = lib
     return lib
@@ -386,3 +401,60 @@ def best_overlap_native(a: bytes, b: bytes,
     return int(lib.rfx_best_overlap(_ptr(aa, ctypes.c_uint8), len(aa),
                                     _ptr(bb, ctypes.c_uint8), len(bb),
                                     min_overlap))
+
+
+# ---------------------------------------------------------------------------
+# preprocessing
+# ---------------------------------------------------------------------------
+
+def merge_pairs_native(m1: np.ndarray, l1: np.ndarray, m2: np.ndarray,
+                       l2: np.ndarray, *, min_overlap: int,
+                       max_mismatch: float) -> Optional[np.ndarray]:
+    """Best overlap length per pair (0 = unmerged), ``rfx_merge_pairs``:
+    mate 1 forward against mate 2's reverse complement. None when the
+    library is missing."""
+    lib = _get_lib()
+    if lib is None:
+        return None
+    m1 = np.ascontiguousarray(m1, dtype=np.uint8)
+    m2 = np.ascontiguousarray(m2, dtype=np.uint8)
+    l1 = np.ascontiguousarray(l1, dtype=np.int32)
+    l2 = np.ascontiguousarray(l2, dtype=np.int32)
+    if m2.shape[0] != m1.shape[0] or l1.shape != (m1.shape[0],) \
+            or l2.shape != (m2.shape[0],):
+        raise ValueError("mate matrices and lengths disagree in rows")
+    best = np.zeros(m1.shape[0], dtype=np.int32)
+    lib.rfx_merge_pairs(
+        _ptr(m1, ctypes.c_uint8), _ptr(l1, ctypes.c_int32), m1.shape[1],
+        _ptr(m2, ctypes.c_uint8), _ptr(l2, ctypes.c_int32), m2.shape[1],
+        m1.shape[0], min_overlap, max_mismatch, _ptr(best, ctypes.c_int32))
+    return best
+
+
+def correct_reads_native(mat: np.ndarray, lens: np.ndarray,
+                         solid_sorted: np.ndarray, *, k: int,
+                         quals: np.ndarray = None, trust_qual: int = 0,
+                         threads: int = 0):
+    """In-place threaded k-mer-spectrum correction, ``rfx_correct``: the
+    in-order per-read scan of ``preprocess.correct_reads_scalar`` against
+    the sorted uint64 solid values. Returns ``(matrix, n_fixed)``, or None
+    when the library is missing or k > 31."""
+    lib = _get_lib()
+    if lib is None or k > 31:
+        return None
+    mat = np.ascontiguousarray(mat, dtype=np.uint8)
+    lens32 = np.ascontiguousarray(lens, dtype=np.int32)
+    if lens32.shape != (mat.shape[0],):
+        raise ValueError("lengths do not match the read matrix")
+    solid = np.ascontiguousarray(solid_sorted, dtype=np.uint64)
+    qp = None
+    if quals is not None and trust_qual > 0:
+        quals = np.ascontiguousarray(quals, dtype=np.uint8)
+        if quals.shape != mat.shape:
+            raise ValueError("quality matrix does not match the reads")
+        qp = _ptr(quals, ctypes.c_uint8)
+    n_fixed = lib.rfx_correct(
+        _ptr(mat, ctypes.c_uint8), _ptr(lens32, ctypes.c_int32),
+        mat.shape[0], mat.shape[1], _ptr(solid, ctypes.c_uint64),
+        len(solid), k, qp, int(trust_qual), threads or _N_THREADS)
+    return mat, int(n_fixed)

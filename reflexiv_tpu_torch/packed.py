@@ -10,7 +10,9 @@ and one shifted left by 32 is masked off.
 The round is the JAX package's CPU form (lexsort + index join,
 ``packed.py:457-466`` / ``:498-507``) and the census its non-scatter-free
 form (``:388-405``); both sorts are stable, so the rows come out in the same
-order as there, row for row.
+order as there, row for row. A row's group key (its (k-1)-base end) is one
+int64 up to k = 31 and above that the JAX package's limb row itself
+(:func:`keys_from_windows`).
 """
 from __future__ import annotations
 
@@ -20,7 +22,8 @@ import torch
 import torch.nn.functional as F
 
 from .bitpack import MASK32, group_sentinel, mix32
-from .join_core import first_per_segment, merge_gate, segment_sum, segments
+from .join_core import (first_per_segment, lexsort_rows, merge_gate,
+                        segment_sum, segments)
 from .records import Records, live_first_order
 
 BASES_PER_LIMB = 16
@@ -130,18 +133,73 @@ def concat(seq_a, len_a, seq_b, len_b, skip, out_limbs: int):
     return (pa | pb) & tail_mask, total
 
 
+def keys_from_windows(win: torch.Tensor, live: torch.Tensor,
+                      sub: int) -> torch.Tensor:
+    """Group keys from left-aligned ``sub``-base windows (``(N,
+    limbs_for(sub))`` limbs). Up to 30 bases (k <= 31) a key is one int64,
+    the right-aligned 2 * sub-bit integer, and a dead row's key
+    :func:`bitpack.group_sentinel`; above, the key is the limb row itself
+    and a dead row's all-ones limbs, as the JAX package keys rows. Either
+    way dead rows order as the JAX all-ones limbs do."""
+    if sub > 30:
+        return torch.where(live[:, None], win, MASK32)
+    if win.shape[1] == 1:
+        key = win[:, 0] >> (32 - 2 * sub)
+    else:
+        key = (win[:, 0] << (2 * sub - 32)) | (win[:, 1] >> (64 - 2 * sub))
+    return torch.where(live, key, group_sentinel(sub))
+
+
 def derive_keys_packed(p: PackedRecords, marker: torch.Tensor, k: int):
-    """Sort key per row: the (k-1)-base sub-k-mer at the marker end as one
-    int64 (right-aligned 2(k-1)-bit integer); dead rows get
-    :func:`bitpack.group_sentinel`, ordered as the JAX all-ones limbs."""
+    """Sort key per row: the (k-1)-base sub-k-mer at the marker end
+    (:func:`keys_from_windows`)."""
     sub = k - 1
     start = torch.where(marker == 1, 0, p.length - sub).clamp(min=0)
-    limbs = extract_window(p.seq, start, sub)
-    if limbs.shape[1] == 1:
-        key = limbs[:, 0] >> (32 - 2 * sub)
-    else:
-        key = (limbs[:, 0] << (2 * sub - 32)) | (limbs[:, 1] >> (64 - 2 * sub))
-    return torch.where(p.live, key, group_sentinel(sub))
+    return keys_from_windows(extract_window(p.seq, start, sub), p.live, sub)
+
+
+def group_order(key: torch.Tensor, marker: torch.Tensor):
+    """Stable order by (key, marker) -> ``(order, sorted keys)``: the JAX
+    round's ``lexsort((marker, limb W-1, ..., limb 0))``. The marker (< 4)
+    shares the last word: an int64 key is at most 2^60, and a limb below
+    2^32 leaves room, so the order is the same."""
+    if key.dim() == 1:
+        skey_m, order = torch.sort(key * 4 + marker, stable=True)
+        return order, skey_m >> 2
+    folded = torch.cat([key[:, :-1], key[:, -1:] * 4 + marker[:, None]], 1)
+    order = lexsort_rows(folded)
+    return order, key[order]
+
+
+class Pairing(NamedTuple):
+    """The merges of one round, in sorted row space: row ``fwd[i]`` takes
+    ``refl ++ fwd[k-1:]`` from row ``refl[i]`` with the new end attrs."""
+    fwd: torch.Tensor        # (M,) sorted positions of merging forward rows
+    refl: torch.Tensor       # (M,) their reflected partners
+    new_left: torch.Tensor   # (M,) int32
+    new_right: torch.Tensor  # (M,) int32
+    absorbed: torch.Tensor   # (N,) bool: sorted rows that die
+
+
+def pair_sorted(skey, smarker, slive, sleft, sright, slen, sub: int
+                ) -> Pairing:
+    """In each key segment of the sorted rows the first live forward row
+    and the first live reflected row merge if the gate passes
+    (``ReflexivDSMain.java:3070-3086``, ``:3237-3318``)."""
+    N = slen.shape[0]
+    _is_start, seg = segments(skey)
+    idx = torch.arange(N, device=slen.device)
+    fwd_idx = first_per_segment(seg, slive & (smarker == 1), N)
+    refl_idx = first_per_segment(seg, slive & (smarker == 2), N)
+    has_pair = (fwd_idx < N) & (refl_idx < N)
+    f = fwd_idx.clamp(max=N - 1)
+    r = refl_idx.clamp(max=N - 1)
+    gate = merge_gate(sleft[f], sright[f], sleft[r], sright[r],
+                      slen[f] - sub, slen[r] - sub)
+    merge = has_pair & gate.merge
+    rows = torch.nonzero(merge & (idx == fwd_idx)).squeeze(1)
+    return Pairing(rows, r[rows], gate.new_left[rows], gate.new_right[rows],
+                   merge & (idx == refl_idx))
 
 
 def draw_markers_packed(p: PackedRecords, round_seed: int) -> torch.Tensor:
@@ -159,9 +217,11 @@ def draw_markers_packed(p: PackedRecords, round_seed: int) -> torch.Tensor:
     return torch.where(p.live, 1 + (h & 1).to(torch.int32), 0).to(torch.int32)
 
 
-def compact_packed(p: PackedRecords, new_cap: int) -> PackedRecords:
+def compact_packed(p, new_cap: int):
+    """Live rows first, in row order, cut to ``new_cap`` rows; any pool of
+    row tensors with a ``live`` field (the reference's ``coalesce``)."""
     take = live_first_order(p.live)[:new_cap]
-    return PackedRecords(*(t[take] for t in p))
+    return type(p)(*(t[take] for t in p))
 
 
 def park_finished_rows(p: PackedRecords, fin: torch.Tensor,
@@ -187,23 +247,32 @@ def grow_packed(p: PackedRecords, new_bases: int) -> PackedRecords:
     return p._replace(seq=F.pad(p.seq, (0, pad)))
 
 
-def finished_mask_packed(p: PackedRecords, k: int) -> torch.Tensor:
-    """Live rows with no potential partner at either end: no other live
-    row's opposite-end sub-k-mer equals either of theirs."""
-    N = p.capacity
-    ones = torch.ones(N, dtype=torch.int32, device=p.seq.device)
-    keys = torch.cat([derive_keys_packed(p, ones, k),
-                      derive_keys_packed(p, 2 * ones, k)])
-    is_tail = torch.cat([torch.zeros_like(p.live), torch.ones_like(p.live)])
-    live2 = torch.cat([p.live, p.live])
-    skey, order = torch.sort(keys, stable=True)
+def finished_from_keys(head: torch.Tensor, tail: torch.Tensor,
+                       live: torch.Tensor) -> torch.Tensor:
+    """Live rows with no potential partner at either end, from their head
+    and tail group keys (:func:`keys_from_windows`): no other live row's
+    opposite-end key equals either of theirs."""
+    N = live.shape[0]
+    keys = torch.cat([head, tail])
+    is_tail = torch.cat([torch.zeros_like(live), torch.ones_like(live)])
+    live2 = torch.cat([live, live])
+    order = lexsort_rows(keys)
+    skey = keys[order]
     stail, slive = is_tail[order], live2[order]
     _is_start, seg = segments(skey)
     n_heads = segment_sum((slive & ~stail).to(torch.int64), seg, 2 * N)[seg]
     n_tails = segment_sum((slive & stail).to(torch.int64), seg, 2 * N)[seg]
-    partnered = torch.empty(2 * N, dtype=torch.bool, device=p.seq.device)
+    partnered = torch.empty(2 * N, dtype=torch.bool, device=live.device)
     partnered[order] = torch.where(stail, n_heads > 0, n_tails > 0)
-    return p.live & ~partnered[:N] & ~partnered[N:]
+    return live & ~partnered[:N] & ~partnered[N:]
+
+
+def finished_mask_packed(p: PackedRecords, k: int) -> torch.Tensor:
+    """Live rows with no potential partner at either end
+    (``packed._finished_mask_packed``, its non-scatter-free form)."""
+    ones = torch.ones(p.capacity, dtype=torch.int32, device=p.seq.device)
+    return finished_from_keys(derive_keys_packed(p, ones, k),
+                              derive_keys_packed(p, 2 * ones, k), p.live)
 
 
 def extension_round_packed(p: PackedRecords, round_seed: int, *, k: int):
@@ -219,42 +288,26 @@ def extension_round_packed(p: PackedRecords, round_seed: int, *, k: int):
     N, LW = p.seq.shape
     sub = k - 1
     marker = draw_markers_packed(p, round_seed)
-    key = derive_keys_packed(p, marker, k)
-    # lexsort((marker, key)) as one stable sort: marker < 4 and key <= 2^60
-    skey_m, order = torch.sort(key * 4 + marker, stable=True)
-    skey = skey_m >> 2
-    smarker = marker[order]
+    order, skey = group_order(derive_keys_packed(p, marker, k), marker)
     sseq, slen = p.seq[order], p.length[order]
     sleft, sright, slive = p.left[order], p.right[order], p.live[order]
-
-    _is_start, seg = segments(skey)
-    idx = torch.arange(N, device=p.seq.device)
-    fwd_idx = first_per_segment(seg, slive & (smarker == 1), N)
-    refl_idx = first_per_segment(seg, slive & (smarker == 2), N)
-    has_pair = (fwd_idx < N) & (refl_idx < N)
-    f = fwd_idx.clamp(max=N - 1)
-    r = refl_idx.clamp(max=N - 1)
-    gate = merge_gate(sleft[f], sright[f], sleft[r], sright[r],
-                      slen[f] - sub, slen[r] - sub)
-    merge = has_pair & gate.merge
-    i_am_fwd = merge & (idx == fwd_idx)
-    i_am_refl = merge & (idx == refl_idx)
+    pairing = pair_sorted(skey, marker[order], slive, sleft, sright, slen,
+                          sub)
 
     # the JAX round builds the concatenation for every row and selects the
     # merging ones; building it for those rows only gives the same records
-    rows = torch.nonzero(i_am_fwd).squeeze(1)
-    fr, rr = f[rows], r[rows]
+    rows, rr = pairing.fwd, pairing.refl
     merged_seq, new_len = concat(
-        sseq[rr], slen[rr], sseq[fr], slen[fr],
+        sseq[rr], slen[rr], sseq[rows], slen[rows],
         torch.full_like(rows, sub), LW)
-    out_seq = sseq.index_copy(0, rows, merged_seq)
-    out_len = slen.index_copy(0, rows, new_len.to(torch.int32))
-    out_left = torch.where(i_am_fwd, gate.new_left, sleft)
-    out_right = torch.where(i_am_fwd, gate.new_right, sright)
-    out_live = slive & ~i_am_refl
-    out = PackedRecords(out_seq, out_len, out_left, out_right, out_live)
+    out = PackedRecords(
+        sseq.index_copy(0, rows, merged_seq),
+        slen.index_copy(0, rows, new_len.to(torch.int32)),
+        sleft.index_copy(0, rows, pairing.new_left),
+        sright.index_copy(0, rows, pairing.new_right),
+        slive & ~pairing.absorbed)
 
-    live_n = out_live.sum()
-    top2 = torch.topk(torch.where(out_live, out_len, 0), min(2, N)).values
+    live_n = out.live.sum()
+    top2 = torch.topk(torch.where(out.live, out.length, 0), min(2, N)).values
     need = top2.sum() - sub
     return out, live_n, need

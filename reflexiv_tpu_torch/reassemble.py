@@ -17,12 +17,14 @@ from typing import List, Tuple
 import numpy as np
 import torch
 
+from . import metrics
 from .assembler import initial_records_from_counts, run_extension_loop
-from .bitpack import pack_bases, revcomp_bases
+from .bitpack import canonical_rows, num_words, pack_bases, revcomp_bases
 from .contigs import emit_contigs, revcomp_str
 from .count import count_kmers
 from .io import contigs_to_segment_matrix, reads_to_matrix
 from .kernels import extract as extract_mod
+from .mercy import lookup_counts
 from .params import Params
 from .records import Records, next_pow2
 
@@ -31,24 +33,37 @@ log = logging.getLogger("reflexiv_tpu_torch")
 
 def _fragment_keys(fragments: List[str], k: int, device,
                    plain: bool = False) -> torch.Tensor:
-    """Canonical keys of every k-base window inside a fragment, through
-    the extraction kernel (``plain``: its plain torch version); invalid
-    windows give its sentinel, which no record key equals."""
-    mats = [contigs_to_segment_matrix(fragments, k=k)]
-    # the segment matrix skips pieces under k + 2 bases; a fragment of k or
-    # k + 1 bases still holds windows
+    """Canonical keys of every k-base window inside a fragment: ``(M,)``
+    int64 for k <= 31, ``(M, W)`` word rows above. The windows of the
+    segment matrix go through the extraction kernel (``plain``: its plain
+    torch version); invalid windows give its sentinel, which no record key
+    equals. A fragment of k or k + 1 bases is below the kernel's read
+    filter (it takes reads of at least k + 2 bases), so its one or two
+    windows are packed here."""
+    one = num_words(k) == 1
+    if one:
+        extract = extract_mod.extract_canonical_keys_torch if plain \
+            else extract_mod.extract_canonical_keys
+    else:
+        extract = extract_mod.extract_canonical_rows_torch if plain \
+            else extract_mod.extract_canonical_rows
+    keys = []
+    mat, lens = contigs_to_segment_matrix(fragments, k=k)
+    if len(lens):
+        keys.append(extract(torch.from_numpy(mat).to(device),
+                            torch.from_numpy(lens).to(device), k=k))
     short = [f.encode() for f in fragments if k <= len(f) < k + 2]
     if short:
-        mats.append(reads_to_matrix(short))
-    extract = extract_mod.extract_canonical_keys_torch if plain \
-        else extract_mod.extract_canonical_keys
-    keys = []
-    for mat, lens in mats:
-        if len(lens):
-            keys.append(extract(torch.from_numpy(mat).to(device),
-                                torch.from_numpy(lens).to(device), k=k))
+        smat, slens = reads_to_matrix(short)
+        win = torch.from_numpy(np.stack(
+            [smat[i, j:j + k] for i in range(len(short))
+             for j in range(int(slens[i]) - k + 1)])).to(device)
+        fwd = pack_bases(win, k)
+        rc = pack_bases(revcomp_bases(win), k)
+        keys.append(torch.minimum(fwd, rc) if one else canonical_rows(fwd, rc))
     if not keys:
-        return torch.zeros(0, dtype=torch.int64, device=device)
+        return torch.zeros((0,) if one else (0, num_words(k)),
+                           dtype=torch.int64, device=device)
     return torch.cat(keys)
 
 
@@ -56,15 +71,22 @@ def remove_fragment_kmers(recs: Records, fragments: List[str], k: int, *,
                           plain: bool = False) -> Records:
     """Kill the k-mer records whose canonical k-mer lies inside a fragment
     (``reassemble.remove_fragment_kmers``), as set membership of int64
-    keys. K-mers spanning a fragment boundary hold a base outside it and
-    stay."""
+    keys, or above k = 31 of word rows (a search of the sorted unique
+    fragment rows). K-mers spanning a fragment boundary hold a base outside
+    it and stay."""
     interior = _fragment_keys(fragments, k, recs.seq.device, plain)
-    if not interior.numel():
+    if not interior.shape[0]:
         return recs
     fwd = pack_bases(recs.seq[:, :k], k)
-    canon = torch.minimum(fwd, pack_bases(revcomp_bases(recs.seq[:, :k]), k))
-    inside = (recs.length == k) & torch.isin(canon, interior)
-    return recs._replace(live=recs.live & ~inside)
+    rc = pack_bases(revcomp_bases(recs.seq[:, :k]), k)
+    if interior.dim() == 1:
+        hit = torch.isin(torch.minimum(fwd, rc), interior)
+    else:
+        table = torch.unique(interior, dim=0)
+        ones = torch.ones(table.shape[0], dtype=torch.int32,
+                          device=table.device)
+        hit = lookup_counts(table, ones, canonical_rows(fwd, rc))[0] > 0
+    return recs._replace(live=recs.live & ~((recs.length == k) & hit))
 
 
 def inject_fragments(recs: Records, fragments: List[str], k: int) -> Records:
@@ -119,7 +141,7 @@ def reassemble_arrays(bases, lengths, fragments: List[str], params: Params,
     """Reads + fragments -> extended contigs (``reassemble
     .reassemble_arrays``). ``REFLEXIV_REASSEMBLE_BYTES`` (default 8 GiB)
     bounds the unioned pool's byte matrix: the longest fragments pass
-    through untouched until it fits. ``plain=True`` counts and cuts the
+    through untouched until it fits (counter ``reassemble/passthrough``). ``plain=True`` counts and cuts the
     fragment windows through the kernels' plain torch versions."""
     from .meta import dedup_contigs
 
@@ -139,6 +161,7 @@ def reassemble_arrays(bases, lengths, fragments: List[str], params: Params,
         if cap_rows * cap_len <= budget:
             break
         passthrough.append(keep.pop())
+    metrics.current().set("reassemble/passthrough", len(passthrough))
     if passthrough:
         log.warning(
             "reassembly pool exceeds REFLEXIV_REASSEMBLE_BYTES=%d; %d/%d"
@@ -161,3 +184,27 @@ def reassemble_arrays(bases, lengths, fragments: List[str], params: Params,
     for j, f in enumerate(passthrough):
         out.append((f">Contig-{len(f)}-(-1,-1)-{base + j}", f))
     return out
+
+
+def reassemble(params: Params, *, seed: int = 0, device,
+               plain: bool = False) -> None:
+    """The ``reassembler`` command (``reassemble.reassemble``;
+    ``Pipelines.reflexivDSReAssemblerPipe``, ``Pipelines.java:182-206``):
+    ``-fastq`` reads and ``-frag`` fragments -> ``Assemble_<k>/part-00000``
+    and ``_SUCCESS``."""
+    from .io import (expand_paths, iter_fasta, load_reads_filtered,
+                     write_contigs_fasta, write_success_marker)
+
+    if not params.input_contig:
+        raise SystemExit("error: reassembler requires -frag contig input")
+    fragments = [s.decode() for _, s in
+                 iter_fasta(expand_paths(params.input_contig))]
+    mat, lens = load_reads_filtered(
+        params.input_fastq or params.input_fasta, params)
+    contigs = reassemble_arrays(mat, lens, fragments, params, seed=seed,
+                                device=device, plain=plain)
+    out_dir = os.path.join(params.output_path, f"Assemble_{params.k}")
+    write_contigs_fasta(os.path.join(out_dir, "part-00000"), contigs,
+                        gzip_output=params.gzip_output)
+    write_success_marker(out_dir)
+    log.info("reassembler: %d contigs -> %s", len(contigs), out_dir)

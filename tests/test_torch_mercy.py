@@ -171,11 +171,3 @@ def test_cli_meta_accurate_matches_jax(paired, monkeypatch):
     longest = max(len(s.replace(b"\n", b"")) for s in
                   (c.split(b"\n", 1)[1] for c in want.split(b">")[1:]))
     assert longest > 3000
-
-
-def test_cli_mercy_keeps_its_one_word_bound(tmp_path):
-    from reflexiv_tpu_torch import cli
-
-    with pytest.raises(ValueError, match="k=41"):
-        cli.main(["mercy", "-fastq", "x.fq", "-kmer", "41",
-                  "-outfile", str(tmp_path), "-device", "cpu"])

@@ -180,9 +180,3 @@ def test_cli_reduce_resumes_a_cut_ladder_like_jax(reduce_runs, tmp_path):
                             "-device", "cpu"]) == 0
     assert _tree(tmp_path / "port") == _tree(tmp_path / "jax")
     assert _tree(tmp_path / "port") == _tree(d / "port")
-
-
-def test_cli_run_keeps_its_one_word_bound(tmp_path):
-    with pytest.raises(ValueError, match="k=41"):
-        cli.main(["run", "-fastq", "x.fq", "-kmer", "41",
-                  "-outfile", str(tmp_path), "-device", "cpu"])
