@@ -93,11 +93,35 @@ script. Phases, one line each:
   16. ``stitch`` on the phase-4 reads with phase 4's contigs, the ladder
      21, 31, 61 at full size: per rung the contigs in and out, wall, peak
      device memory and records entering the loop;
+  17. counting past the single-pass bound, from disk: a random
+     100,286,401 bp genome (the length of C. elegans WBcel235) from
+     ``--seed``, 150 bp reads at 30x from both strands with 0.5%
+     substitutions (20,057,280 reads, 2,406,873,600 windows at k = 31,
+     12% over 2^31), written as FASTQ a slice at a time (about 6.2 GB; the
+     work directory needs about 7 GB free). Three child processes, each's
+     peak RSS from ``os.wait4``: (a) ``count.count_kmers_from_files``
+     under ``REFLEXIV_INGEST_BUDGET_MB=256`` equal to ``count_kmers_auto``
+     on the loaded matrix (min_cov 1, every window counted); (b)
+     ``python -m reflexiv_tpu_torch.cli run -kmer 31 -cover 3`` under that
+     budget; (c) the same ``run`` on the whole matrix. Extraction and the
+     sort launch in every leg, (b) and (c) write the same ``part-00000``,
+     the canonical total is within [0.95, 1.05] x the genome and (b)'s
+     peak RSS is below (c)'s;
+  17b. on phase 4's FASTQ: ``count_kmers_from_files`` at
+     ``REFLEXIV_INGEST_BUDGET_MB=16`` with an 8M-row device table (at
+     least 3 segments spill to the host), ``count_kmers_auto`` with
+     ``partitions=8``, and ``count_kmers_from_files_multi`` over the
+     default klist (W = 1-4), each table equal to the one-pass
+     ``count_kmers`` table;
   and at 200 kb, the kernel path against the plain path: ``run -kmer 61``
   (equal contig lists), ``preprocess`` with the device correction,
   ``reassembler``, ``merger`` and ``stitch`` (byte-identical trees), then
   ``stitch`` over phase 8's ``reduce`` directory (its
-  ``Stitch_kmer/Count_31_sorted`` reused).
+  ``Stitch_kmer/Count_31_sorted`` reused); then ``reduce`` and ``meta``
+  under a 1 MB budget through the kernels, byte-identical to phases 8 and
+  10's whole-matrix plain-path files (the ``reduce`` tree,
+  ``Assembly/part-00000`` and ``steps/00sorted``), and end extension with
+  its window index in five chunks, equal to one chunk.
 
 Phases 2 and 3 also hold the W-word extraction and row sort (k = 61, 81
 and 95: W = 2, 3 and 4 words) to their plain versions on the main path's
@@ -158,7 +182,8 @@ def simulate(rng, genome_bp: int):
     return genome, reads
 
 
-def write_fastq(path: str, reads: np.ndarray) -> None:
+def fastq_records(reads: np.ndarray) -> np.ndarray:
+    """FASTQ records of a read code matrix, one byte row per read."""
     n, L = reads.shape
     rec = np.empty((n, 2 * L + 7), np.uint8)
     rec[:, :3] = np.frombuffer(b"@r\n", np.uint8)
@@ -166,7 +191,11 @@ def write_fastq(path: str, reads: np.ndarray) -> None:
     rec[:, 3 + L:6 + L] = np.frombuffer(b"\n+\n", np.uint8)
     rec[:, 6 + L:6 + 2 * L] = ord("I")
     rec[:, 6 + 2 * L] = ord("\n")
-    rec.tofile(path)
+    return rec
+
+
+def write_fastq(path: str, reads: np.ndarray) -> None:
+    fastq_records(reads).tofile(path)
 
 
 def compare(torch, name, kernel, plain):
@@ -242,14 +271,11 @@ def bound_ms(bytes_moved: float, int_ops: float = 0.0):
         "operations"
 
 
-def path_launches(extract, radix_sort):
+def path_launches():
     """The launch counters of extraction and the sort, one-word and per W."""
-    got = {"extract": extract.LAUNCHES, "sort": radix_sort.LAUNCHES}
-    for W, c in extract.ROW_LAUNCHES.items():
-        got[f"extract_rows{W}"] = c
-    for W, c in radix_sort.ROW_LAUNCHES.items():
-        got[f"sort_rows{W}"] = c
-    return got
+    from reflexiv_tpu_torch.kernels import launch_counts
+
+    return launch_counts()
 
 
 def zero_launches(extract, radix_sort):
@@ -421,6 +447,9 @@ def main(argv=None) -> int:
                       bounds, library)
         phases_11_12(torch, args, dev, work, genome, launches)
         phases_13_16(torch, args, dev, work, fq, genome, launches)
+        phase_17(torch, args, work, launches, rows)
+        phase_17b(torch, dev, work, fq, launches)
+        checks_200kb_streaming(torch, args, dev, work)
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
@@ -615,7 +644,7 @@ def phases_4_to_8(torch, args, dev, work, fq, genome, launches, rows,
                    "-device", "cuda"])
     wall = time.perf_counter() - t0
     peak = torch.cuda.max_memory_allocated() / 2**30
-    red_launches = path_launches(extract, radix_sort)
+    red_launches = path_launches()
     if rc != 0:
         raise SystemExit(f"reduce exited {rc}")
     want = [f"Count_{k}_{s}" for k in DEFAULT_KLIST
@@ -714,7 +743,7 @@ def meta_phase(torch, cli, fq, rout, genome):
                    "-device", "cuda"])
     wall = time.perf_counter() - t0
     peak = torch.cuda.max_memory_allocated() / 2**30
-    got = path_launches(extract, radix_sort)
+    got = path_launches()
     if rc != 0:
         raise SystemExit(f"meta exited {rc}")
     if min(got["extract"], got["sort"]) < 1:
@@ -847,7 +876,7 @@ def phases_11_12(torch, args, dev, work, genome, launches) -> None:
     rc = cli.main(["mercy", "-paired", paired, "-kmer", "31", "-cover", "3",
                    "-outfile", out, "-device", "cuda"])
     wall = time.perf_counter() - t0
-    got = path_launches(extract, radix_sort)
+    got = path_launches()
     if rc != 0:
         raise SystemExit(f"mercy exited {rc}")
     if min(got["extract"], got["sort"]) < 1:
@@ -878,7 +907,7 @@ def phases_11_12(torch, args, dev, work, genome, launches) -> None:
                    "cuda"])
     wall = time.perf_counter() - t0
     peak = torch.cuda.max_memory_allocated() / 2**30
-    got = path_launches(extract, radix_sort)
+    got = path_launches()
     if rc != 0:
         raise SystemExit(f"meta -accurate -patch -scaffold exited {rc}")
     need = ["extract", "sort"] + sorted({
@@ -1126,7 +1155,7 @@ def run_cli(torch, cli, argv, label):
     rc = cli.main(argv + ["-device", "cuda"])
     wall = time.perf_counter() - t0
     peak = torch.cuda.max_memory_allocated() / 2**30
-    got = path_launches(extract, radix_sort)
+    got = path_launches()
     if rc != 0:
         raise SystemExit(f"{label} exited {rc}")
     out = argv[argv.index("-outfile") + 1]
@@ -1410,6 +1439,407 @@ def same_trees(label: str, a: str, b: str) -> None:
         os.path.join(a, f), os.path.join(b, f), shallow=False)]
     if differ:
         raise SystemExit(f"{label} at {CHECK_BP} bp: files differ: {differ}")
+
+# ---------------------------------------------------------------------------
+# phase 17: counting past the single-pass bound, from disk; 17b: forced
+# spill and streaming at 4.64 Mbp; the 200 kb budget checks
+# ---------------------------------------------------------------------------
+
+BIG_GENOME_BP = 100_286_401   # C. elegans WBcel235
+BIG_READ_LEN = 150
+BIG_SLICE = 1 << 20           # reads made and written at a time
+BIG_BUDGET_MB = 256
+SPILL_BUDGET_MB, SPILL_ROWS = 16, 8_000_000   # phase 17b
+
+TABLE_CHECK = r"""
+import json, sys, time
+import torch
+from reflexiv_tpu_torch import metrics
+from reflexiv_tpu_torch.count import (STREAM_WINDOW_LIMIT, count_kmers_auto,
+                                      count_kmers_from_files)
+from reflexiv_tpu_torch.io import ingest_budget_bytes, load_reads
+from reflexiv_tpu_torch.kernels import extract, radix_sort
+
+dev = torch.device("cuda")
+met = metrics.reset()
+t0 = time.perf_counter()
+a = count_kmers_from_files(sys.argv[1], k=31, min_cov=1,
+                           budget_bytes=ingest_budget_bytes(), device=dev)
+torch.cuda.synchronize()
+t1 = time.perf_counter()
+streamed = {"extract": extract.LAUNCHES, "sort": radix_sort.LAUNCHES}
+timers, counters = dict(met.timers), dict(met.counts)
+mat, lens = load_reads(sys.argv[1])
+t2 = time.perf_counter()
+b = count_kmers_auto(mat, lens, k=31, min_cov=1, device=dev)
+torch.cuda.synchronize()
+t3 = time.perf_counter()
+result = {
+    "equal": all(x.shape == y.shape and bool(torch.equal(x, y))
+                 for x, y in zip(a, b)),
+    "rows": a[1].numel(), "count_total": int(a[1].sum()),
+    "windows": int(mat.shape[0]) * (int(mat.shape[1]) - 30),
+    "streamed_launches": streamed,
+    "launches": {"extract": extract.LAUNCHES, "sort": radix_sort.LAUNCHES},
+    "files_s": t1 - t0, "load_s": t2 - t1, "auto_s": t3 - t2,
+    "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+    "timers": timers, "counters": counters}
+del a, b
+torch.cuda.empty_cache()
+
+
+def max_err(x, y):
+    if x.shape != y.shape:
+        return -1
+    step = 1 << 27
+    return max((int((x[i:i + step] - y[i:i + step]).abs().max())
+                for i in range(0, x.shape[0], step)), default=0)
+
+
+# one counting pass of the loaded matrix (count_kmers_auto's first chunk,
+# 150 bp reads), each kernel against its plain version on the same tensors;
+# these launches are not the main path's
+rows = min(STREAM_WINDOW_LIMIT, radix_sort.MAX_N) // (mat.shape[1] - 30)
+bases = torch.from_numpy(mat[:rows]).to(dev)
+blens = torch.from_numpy(lens[:rows]).to(dev, torch.int32)
+del mat, lens
+want = extract.extract_canonical_keys_torch(bases, blens, k=31)
+keys = extract.extract_canonical_keys(bases, blens, k=31)
+result["pass_reads"], result["pass_width"] = bases.shape
+result["pass_windows"] = keys.numel()
+result["extract_err"] = max_err(keys, want)
+del want, bases, blens
+want = radix_sort.sort_keys_torch(keys)
+got = radix_sort.sort_keys(keys, bits=62)
+result["sort_err"] = max_err(got, want)
+print(json.dumps(result))
+"""
+
+
+def write_big_fastq(rng, path: str):
+    """Phase 17's input: a random genome of BIG_GENOME_BP and 150 bp reads
+    at 30x from both strands with ERR substitutions, made and written as
+    FASTQ BIG_SLICE reads at a time (the host never holds them all).
+    Returns the genome and the read count."""
+    genome = rng.integers(0, 4, BIG_GENOME_BP, dtype=np.uint8)
+    n = DEPTH * BIG_GENOME_BP // BIG_READ_LEN
+    windows = np.lib.stride_tricks.sliding_window_view(genome, BIG_READ_LEN)
+    with open(path, "wb") as fh:
+        for lo in range(0, n, BIG_SLICE):
+            m = min(BIG_SLICE, n - lo)
+            reads = windows[rng.integers(0, len(windows), m)]
+            # ERR of the bases, drawn as positions: a float per base would
+            # cost more than the rest of the slice
+            n_err = rng.binomial(reads.size, ERR)
+            reads.reshape(-1)[rng.integers(0, reads.size, n_err)] = \
+                rng.integers(0, 4, n_err, dtype=np.uint8)
+            flip = rng.random(m) < 0.5
+            reads[flip] = 3 - reads[flip, ::-1]
+            fastq_records(reads).tofile(fh)
+    return genome, n
+
+
+# A process's peak RSS starts at its parent's RSS when it forks (Linux
+# keeps the high-water mark across exec), and this script's own RSS is
+# many GiB by phase 17: so a small launcher starts each leg and reads the
+# leg's rusage from os.wait4.
+RSS_LAUNCHER = r"""
+import json, os, subprocess, sys
+proc = subprocess.Popen(sys.argv[2:])
+_pid, status, usage = os.wait4(proc.pid, 0)
+proc.returncode = os.waitstatus_to_exitcode(status)
+with open(sys.argv[1], "w") as fh:
+    json.dump({"rc": proc.returncode, "maxrss_kib": usage.ru_maxrss}, fh)
+sys.exit(proc.returncode)
+"""
+
+
+def child(argv, log_path: str, budget_mb: int = 0):
+    """Run ``argv`` as a child process of :data:`RSS_LAUNCHER` (the budget
+    set, or unset), its output to ``log_path``. Returns (exit code, wall
+    s, peak RSS GiB from ``os.wait4``'s rusage)."""
+    env = dict(os.environ)
+    env.pop("REFLEXIV_INGEST_BUDGET_MB", None)
+    if budget_mb:
+        env["REFLEXIV_INGEST_BUDGET_MB"] = str(budget_mb)
+    usage = log_path + ".rusage.json"
+    t0 = time.perf_counter()
+    with open(log_path, "w") as fh:
+        rc = subprocess.run([sys.executable, "-c", RSS_LAUNCHER, usage]
+                            + argv, cwd=REPO, env=env, stdout=fh,
+                            stderr=subprocess.STDOUT).returncode
+    wall = time.perf_counter() - t0
+    with open(usage) as fh:
+        got = json.load(fh)
+    return rc, wall, got["maxrss_kib"] / 2**20
+
+
+def last_line(path: str) -> str:
+    with open(path) as fh:
+        lines = fh.read().splitlines()
+    return lines[-1] if lines else ""
+
+
+def phase_17(torch, args, work, launches, rows) -> None:
+    """Phase 17: 2,406,873,600 windows at k = 31 from a FASTQ file, in
+    three child processes: (a) the table from disk under a 256 MB budget
+    against ``count_kmers_auto`` on the loaded matrix, then the extraction
+    kernel and the sort against their plain versions on one counting pass
+    of that matrix (their max errors go into ``rows``); (b) ``run`` under
+    the budget; (c) ``run`` on the whole matrix. ``launches`` sums the
+    legs' main-path launches."""
+    from reflexiv_tpu_torch.contigs import assembly_stats
+
+    torch.cuda.empty_cache()
+    free = shutil.disk_usage(work).free
+    if free < 7 << 30:
+        raise SystemExit(f"phase 17 needs about 7 GB of free disk in {work},"
+                         f" {free / 2**30:.1f} GiB free")
+    fq = os.path.join(work, "big.fq")
+    t0 = time.perf_counter()
+    _genome, n = write_big_fastq(np.random.default_rng(args.seed + 9), fq)
+    windows = n * (BIG_READ_LEN - 30)
+    say(f"phase 17 input: {BIG_GENOME_BP} bp genome, {n} reads x "
+        f"{BIG_READ_LEN} bp (30x, {ERR} substitutions), {windows} windows "
+        f"at k = 31 ({windows / 2**31:.4f} x 2^31), "
+        f"{os.path.getsize(fq)} bytes of FASTQ, made in "
+        f"{time.perf_counter() - t0:.1f} s")
+
+    def tally(got, leg):
+        if min(got.get("extract", 0), got.get("sort", 0)) < 1:
+            raise SystemExit(f"phase 17 ({leg}) skipped a kernel: {got}")
+        for name, c in got.items():
+            launches[name] = launches.get(name, 0) + c
+
+    log = os.path.join(work, "p17a.log")
+    rc, wall, rss = child([sys.executable, "-c", TABLE_CHECK, fq], log,
+                          BIG_BUDGET_MB)
+    if rc != 0:
+        raise SystemExit(f"phase 17 (a) exited {rc}: {last_line(log)}")
+    a = json.loads(last_line(log))
+    if not a["equal"] or a["count_total"] != a["windows"]:
+        raise SystemExit(f"phase 17 (a): from files != count_kmers_auto, "
+                         f"or {a['count_total']} counted of {a['windows']} "
+                         "windows")
+    if min(a["streamed_launches"].values()) < 1:
+        raise SystemExit(f"phase 17 (a) streamed without a kernel: {a}")
+    if a["extract_err"] != 0 or a["sort_err"] != 0:
+        raise SystemExit(f"phase 17 (a): kernel != plain on one pass of "
+                         f"{a['pass_reads']} x {a['pass_width']} bp reads: "
+                         f"extract max error {a['extract_err']}, sort max "
+                         f"error {a['sort_err']} (-1: shapes differ)")
+    for key in ("extract", "sort"):
+        err, ms, pms = rows[key]
+        rows[key] = (max(err, a[f"{key}_err"]), ms, pms)
+    tally(a["launches"], "a")
+    say(f"phase 17 (a) table: count_kmers_from_files at "
+        f"REFLEXIV_INGEST_BUDGET_MB={BIG_BUDGET_MB} == count_kmers_auto on "
+        f"the loaded matrix, {a['rows']} unique 31-mers (min_cov 1), every "
+        f"window counted; from files {a['files_s']:.1f} s (launches "
+        f"{json.dumps(a['streamed_launches'])}, "
+        f"{a['counters'].get('count.chunks')} chunks, "
+        f"{a['counters'].get('count.spills', 0)} spills, "
+        f"count.input_stall_s {a['timers'].get('count.input_stall_s', 0):.1f}"
+        f", count.device_loop_s "
+        f"{a['timers'].get('count.device_loop_s', 0):.1f}, count.ingest_s "
+        f"{a['timers'].get('count.ingest_s', 0):.1f}), load {a['load_s']:.1f}"
+        f" s, count_kmers_auto {a['auto_s']:.1f} s; peak device memory "
+        f"{a['peak_gib']:.2f} GiB; wall {wall:.1f} s, peak RSS {rss:.2f} GiB;"
+        f" launches in all {json.dumps(a['launches'])}; kernel == plain on "
+        f"one pass of {a['pass_reads']} reads x {a['pass_width']} bp "
+        f"({a['pass_windows']} windows): extract max error "
+        f"{a['extract_err']}, sort max error {a['sort_err']}")
+
+    legs = {}
+    for leg, budget in (("b", BIG_BUDGET_MB), ("c", 0)):
+        out = os.path.join(work, f"p17{leg}")
+        log = out + ".log"
+        rc, wall, rss = child(
+            [sys.executable, "-m", "reflexiv_tpu_torch.cli", "run", "-fastq",
+             fq, "-kmer", "31", "-cover", "3", "-outfile", out, "-device",
+             "cuda"], log, budget)
+        if rc != 0:
+            raise SystemExit(f"phase 17 ({leg}) run exited {rc}: "
+                             f"{last_line(log)}")
+        with open(os.path.join(out, "metrics.json")) as fh:
+            met = json.load(fh)
+        c, t = met["counters"], met["stages_s"]
+        got = {name.split("/", 1)[1]: v for name, v in c.items()
+               if name.startswith("launches/")}
+        tally(got, leg)
+        contigs = contig_seqs(os.path.join(out, "part-00000"))
+        st = assembly_stats(contigs)
+        legs[leg] = (rss, os.path.join(out, "part-00000"), st)
+        say(f"phase 17 ({leg}) run -kmer 31 -cover 3"
+            f"{f' at REFLEXIV_INGEST_BUDGET_MB={budget}' if budget else ', whole matrix'}"
+            f": wall {wall:.1f} s, peak RSS {rss:.2f} GiB, peak device memory "
+            f"{c.get('device/peak_bytes', 0) / 2**30:.2f} GiB; chunks "
+            f"{c.get('count.chunks')}, unique 31-mers before the band "
+            f"{c.get('count.table_rows_k31')}, after "
+            f"{c.get('run/solid_kmers')}, spilled "
+            f"{'yes' if c.get('count.spills') else 'no'}; count.input_stall_s"
+            f" {t.get('count.input_stall_s', 0):.1f}, count.device_loop_s "
+            f"{t.get('count.device_loop_s', 0):.1f}, count.ingest_s "
+            f"{t.get('count.ingest_s', 0):.1f}; contigs {st['n_contigs']} "
+            f"(canonical), total {st['total_bp']} bp = "
+            f"{st['total_bp'] / BIG_GENOME_BP:.4f} x genome, N50 {st['n50']};"
+            f" launches {json.dumps(got)}; stages_s {json.dumps(t)}")
+    if not filecmp.cmp(legs["b"][1], legs["c"][1], shallow=False):
+        raise SystemExit("phase 17: run under the budget and on the whole "
+                         "matrix wrote other contigs")
+    share = legs["b"][2]["total_bp"] / BIG_GENOME_BP
+    if not 0.95 <= share <= 1.05:
+        raise SystemExit(f"phase 17: contig total {share:.4f} x the genome, "
+                         "outside [0.95, 1.05]")
+    if not legs["b"][0] < legs["c"][0]:
+        raise SystemExit(f"phase 17: peak RSS under the budget "
+                         f"{legs['b'][0]:.2f} GiB is not below the whole "
+                         f"matrix's {legs['c'][0]:.2f} GiB")
+    say(f"phase 17: (b) and (c) part-00000 byte-identical; peak RSS "
+        f"{legs['b'][0]:.2f} GiB under the budget vs {legs['c'][0]:.2f} GiB")
+    for leg in ("p17b", "p17c"):
+        shutil.rmtree(os.path.join(work, leg))
+    os.remove(fq)
+
+
+def same_table(torch, label, got, want) -> None:
+    if not all(x.shape == y.shape and torch.equal(x, y)
+               for x, y in zip(got, want)):
+        raise SystemExit(f"{label}: table differs from the one-pass table")
+
+
+def phase_17b(torch, dev, work, fq, launches) -> None:
+    """Phase 17b on phase 4's FASTQ: the spill path (16 MB chunks, an
+    8M-row device table), ``count_kmers_auto -partition 8`` and the
+    one-pass ladder over the default klist, each against the one-pass
+    ``count_kmers`` table. The streaming calls' launches count; the
+    one-pass references' do not."""
+    from reflexiv_tpu_torch import count, metrics
+    from reflexiv_tpu_torch.io import ingest_budget_bytes, load_reads
+    from reflexiv_tpu_torch.kernels import extract, radix_sort
+    from reflexiv_tpu_torch.params import DEFAULT_KLIST
+
+    mat, lens = load_reads(fq)
+    bases = torch.from_numpy(mat).to(dev)
+    blens = torch.from_numpy(lens).to(dev)
+    zero_launches(extract, radix_sort)
+    os.environ["REFLEXIV_INGEST_BUDGET_MB"] = str(SPILL_BUDGET_MB)
+    os.environ["REFLEXIV_DEVICE_TABLE_ROWS"] = str(SPILL_ROWS)
+    try:
+        m = metrics.reset()
+        t0 = time.perf_counter()
+        spill = count.count_kmers_from_files(
+            fq, k=31, min_cov=1, budget_bytes=ingest_budget_bytes(),
+            device=dev)
+        spill_s = time.perf_counter() - t0
+        spill_counts = dict(m.counts)
+    finally:
+        os.environ.pop("REFLEXIV_DEVICE_TABLE_ROWS")
+    try:
+        m = metrics.reset()
+        part = count.count_kmers_auto(bases, blens, k=31, min_cov=3,
+                                      partitions=8, device=dev)
+        part_chunks = m.counts.get("count.chunks")
+        t0 = time.perf_counter()
+        multi = count.count_kmers_from_files_multi(
+            fq, DEFAULT_KLIST, min_cov=1, budget_bytes=ingest_budget_bytes(),
+            device=dev)
+        torch.cuda.synchronize()
+        multi_s = time.perf_counter() - t0
+    finally:
+        os.environ.pop("REFLEXIV_INGEST_BUDGET_MB")
+    got = path_launches()
+    if spill_counts.get("count.spills", 0) < 3:
+        raise SystemExit(f"phase 17b: {spill_counts} spilled fewer than 3 "
+                         "segments")
+    if min(got.get(name, 0) for name in ["extract", "sort"] + [
+            f"{p}{W}" for W in (2, 3, 4)
+            for p in ("extract_rows", "sort_rows")]) < 1:
+        raise SystemExit(f"phase 17b skipped a kernel: {got}")
+    for name, c in got.items():
+        launches[name] = launches.get(name, 0) + c
+    ref = count.count_kmers(bases, blens, k=31, min_cov=1, device=dev)
+    same_table(torch, "phase 17b spill", spill, ref)
+    band = ref[1] >= 3
+    same_table(torch, "phase 17b -partition 8", part,
+               (ref[0][band], ref[1][band]))
+    del ref, band, spill, part
+    for k in DEFAULT_KLIST:
+        same_table(torch, f"phase 17b ladder k={k}", multi.pop(k),
+                   count.count_kmers(bases, blens, k=k, min_cov=1,
+                                     device=dev))
+    say(f"phase 17b at {GENOME_BP} bp: from files at "
+        f"REFLEXIV_INGEST_BUDGET_MB={SPILL_BUDGET_MB} with "
+        f"REFLEXIV_DEVICE_TABLE_ROWS={SPILL_ROWS}: "
+        f"{spill_counts.get('count.chunks')} chunks, "
+        f"{spill_counts.get('count.spills')} segments spilled, "
+        f"{spill_counts.get('count.table_rows_k31')} rows, {spill_s:.1f} s; "
+        f"count_kmers_auto -partition 8: {part_chunks} chunks; the one-pass "
+        f"ladder over {list(DEFAULT_KLIST)} in {multi_s:.1f} s; every table "
+        f"equal to one-pass count_kmers; launches {json.dumps(got)}")
+    del bases, blens
+    torch.cuda.empty_cache()
+
+
+def checks_200kb_streaming(torch, args, dev, work) -> None:
+    """At 200 kb: ``reduce`` and ``meta`` under a 1 MB budget through the
+    kernels against phase 8's and phase 10's whole-matrix plain-path files,
+    and end extension with its window index in several chunks against
+    one chunk."""
+    from reflexiv_tpu_torch import mapping, metrics
+    from reflexiv_tpu_torch.dynamic import dynamic_reduction
+    from reflexiv_tpu_torch.meta import dynamic_assembly
+    from reflexiv_tpu_torch.params import Params
+
+    sfq = os.path.join(work, "small.fq")
+    os.environ["REFLEXIV_INGEST_BUDGET_MB"] = "1"
+    try:
+        rdir, mdir = (os.path.join(work, f"budget_{n}")
+                      for n in ("reduce", "meta"))
+        m = metrics.reset()
+        dynamic_reduction(Params(min_kmer_coverage=3, input_fastq=sfq,
+                                 output_path=rdir), device=dev)
+        chunks = m.counts.get("count.chunks")
+        metrics.reset()
+        dynamic_assembly(Params(min_kmer_coverage=3, input_fastq=sfq,
+                                output_path=mdir), device=dev)
+    finally:
+        os.environ.pop("REFLEXIV_INGEST_BUDGET_MB")
+    same_trees("reduce under the budget", rdir, os.path.join(work, "plain"))
+    ref = os.path.join(work, "meta_plain200kb")
+    names = ["Assembly/part-00000"] + [
+        os.path.join("steps/00sorted", f)
+        for f in tree_files(os.path.join(ref, "steps", "00sorted"))]
+    differ = [f for f in names if not filecmp.cmp(
+        os.path.join(mdir, f), os.path.join(ref, f), shallow=False)]
+    if differ or len(names) < 2:
+        raise SystemExit(f"meta under the budget differs: {differ}")
+    say(f"checks 200 kb under REFLEXIV_INGEST_BUDGET_MB=1 ({chunks} chunks "
+        f"in reduce): reduce tree and meta {len(names)} files "
+        "(Assembly/part-00000, steps/00sorted) byte-identical to the "
+        "whole-matrix plain path")
+
+    from reflexiv_tpu_torch.io import load_reads
+
+    mat, lens = load_reads(sfq)
+    bases, blens = (torch.from_numpy(x).to(dev) for x in (mat, lens))
+    contigs = [s[300:-300] for _h, s in contig_seqs(
+        os.path.join(ref, "Assembly", "part-00000")) if len(s) > 1000]
+    one = mapping.end_extend_arrays(contigs, bases, blens)
+    whole = mapping.INDEX_WINDOWS
+    mapping.INDEX_WINDOWS = bases.shape[0] * (bases.shape[1] - 30) // 5
+    try:
+        n_chunks = len(mapping.WindowIndex(bases, blens, 31).chunks)
+        chunked = mapping.end_extend_arrays(contigs, bases, blens)
+    finally:
+        mapping.INDEX_WINDOWS = whole
+    grown = sum(len(a) - len(b) for a, b in zip(one, contigs))
+    if chunked != one or n_chunks < 2 or grown < 1:
+        raise SystemExit(f"end extension: {n_chunks} index chunks differ "
+                         f"from one, or nothing grew ({grown} bases)")
+    say(f"checks 200 kb end extension: window index in {n_chunks} chunks == "
+        f"one chunk on {len(contigs)} trimmed contigs, {grown} bases grown")
+
 
 if __name__ == "__main__":
     sys.exit(main())

@@ -16,7 +16,7 @@ import torch
 from . import metrics
 from . import packed as pk
 from .contigs import emit_contigs
-from .count import count_kmers
+from .count import count_kmers_auto
 from .device import resolve_device, synchronize
 from .graph import build_initial_records
 from .params import Params
@@ -135,13 +135,16 @@ def assemble_from_counts(
 def assemble_reads(
     bases, lengths, params: Params, *, seed: int = 0, device,
 ) -> List[Tuple[str, str]]:
-    """Full single-k assembly from a read code matrix (numpy or tensors)."""
+    """Full single-k assembly from a read code matrix (numpy or tensors);
+    the count streams in row chunks past one pass's windows or under
+    ``-partition`` (:func:`count.count_kmers_auto`)."""
     params.validate()
     device = resolve_device(device)
-    keys, counts = count_kmers(
+    keys, counts = count_kmers_auto(
         bases, lengths, k=params.k, min_cov=params.min_kmer_coverage,
         max_cov=params.max_kmer_coverage, front_clip=params.front_clip,
-        end_clip=params.end_clip, device=device)
+        end_clip=params.end_clip, partitions=params.partitions,
+        device=device)
     log.info("counted %d solid canonical %d-mers", counts.numel(), params.k)
     met = metrics.current()
     _lap("run/counting", device)

@@ -219,6 +219,29 @@ def rows_less_equal(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return lt | eq
 
 
+def rows_equal(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Row equality of ``(N,)`` keys or ``(N, W)`` word rows."""
+    eq = a == b
+    return eq.all(-1) if eq.dim() == 2 else eq
+
+
+def searchsorted_rows(table: torch.Tensor, query: torch.Tensor
+                      ) -> torch.Tensor:
+    """Leftmost insertion position of each ``(N, W)`` query row among the
+    lexicographically sorted ``(U, W)`` table rows (``torch.searchsorted``
+    over word rows)."""
+    U = table.shape[0]
+    lo = torch.zeros(query.shape[0], dtype=torch.int64, device=query.device)
+    hi = torch.full_like(lo, U)
+    for _ in range(max(U.bit_length(), 1)):
+        active = lo < hi
+        mid = ((lo + hi) >> 1).clamp(max=U - 1)
+        go_right = ~rows_less_equal(query, table[mid])   # table[mid] < query
+        lo = torch.where(active & go_right, mid + 1, lo)
+        hi = torch.where(active & ~go_right, mid, hi)
+    return lo
+
+
 def canonical_rows(fwd: torch.Tensor, rc: torch.Tensor) -> torch.Tensor:
     """Several-word :func:`canonical_keys`: the lexicographic min over the
     trailing word axis, ties taking the forward key."""

@@ -33,8 +33,11 @@ import os
 import sys
 import time
 
+import torch
+
 from . import __version__, metrics
 from .device import resolve_device, synchronize
+from .kernels import launch_counts
 from .params import DEFAULT_KLIST, Params
 
 log = logging.getLogger("reflexiv_tpu_torch")
@@ -102,9 +105,8 @@ def _add_common(p: argparse.ArgumentParser) -> None:
     p.add_argument("-scaffold", action="store_true",
                    help="meta: N-gap scaffolds (implies -patch)")
     p.add_argument("-partition", type=int, default=0,
-                   help="re-partition number (the JAX package streams the "
-                        "count in that many batches; the table is the same, "
-                        "and this port counts in one pass)")
+                   help="re-partition number: count the in-memory reads "
+                        "in that many row chunks (the table is the same)")
     p.add_argument("-partitionredu", type=int, default=0,
                    help="shuffle partition count (informational)")
     p.add_argument("-cache", action="store_true",
@@ -161,36 +163,53 @@ def params_from_args(args: argparse.Namespace) -> Params:
 def _load_read_matrix(params: Params):
     from .io import load_reads_filtered
 
-    pattern = params.input_fastq or params.input_fasta
-    if not pattern:
-        raise SystemExit("error: provide -fastq or -fasta input")
+    pattern = _pattern(params)
     mat, lens = load_reads_filtered(pattern, params)
     if mat.shape[0] == 0:
         raise SystemExit(f"error: no reads found in {pattern}")
     return mat, lens
 
 
+def _pattern(params: Params) -> str:
+    pattern = params.input_fastq or params.input_fasta
+    if not pattern:
+        raise SystemExit("error: provide -fastq or -fasta input")
+    return pattern
+
+
 def cmd_counter(params: Params, seed: int, device) -> None:
     """K-mer counting only (MainOfCounter -> ReflexivDataFrameCounter);
     with ``-frag``/``-contig`` the fragments' k-mers are counted in their
-    own unclipped pass and merged in."""
-    from .count import count_kmers, merge_count_tables
+    own unclipped pass and merged in. Under ``REFLEXIV_INGEST_BUDGET_MB``
+    the reads are counted from disk in bounded chunks."""
+    from .count import (count_kmers_auto, count_kmers_from_files,
+                        merge_count_tables)
+    from .io import ingest_budget_bytes
     from .kmer_io import write_count_table
 
-    mat, lens = _load_read_matrix(params)
-    keys, counts = count_kmers(
-        mat, lens, k=params.k, min_cov=1, max_cov=2_000_000_000,
-        front_clip=params.front_clip, end_clip=params.end_clip,
-        device=device)
+    budget = ingest_budget_bytes()
+    clips = dict(k=params.k, min_cov=1, max_cov=2_000_000_000,
+                 front_clip=params.front_clip, end_clip=params.end_clip,
+                 device=device)
+    if budget:
+        keys, counts = count_kmers_from_files(
+            _pattern(params), params=params, budget_bytes=budget, **clips)
+        width = 0
+    else:
+        mat, lens = _load_read_matrix(params)
+        keys, counts = count_kmers_auto(
+            mat, lens, partitions=params.partitions, **clips)
+        width = mat.shape[1]
+        del mat, lens
     if params.input_contig:
         from .io import contigs_to_segment_matrix, expand_paths, iter_fasta
 
         frags = [s.decode() for _name, s in
                  iter_fasta(expand_paths(params.input_contig))]
         fmat, flens = contigs_to_segment_matrix(
-            frags, k=params.k, seg=max(mat.shape[1], 256))
+            frags, k=params.k, seg=max(width, 256))
         if len(flens):
-            fkeys, fcounts = count_kmers(
+            fkeys, fcounts = count_kmers_auto(
                 fmat, flens, k=params.k, min_cov=1, max_cov=2_000_000_000,
                 device=device)
             keys, counts = merge_count_tables(keys, counts, fkeys, fcounts)
@@ -204,10 +223,13 @@ def cmd_counter(params: Params, seed: int, device) -> None:
 
 
 def cmd_run(params: Params, seed: int, device) -> None:
-    """Single-k assembly (Main -> ReflexivDSMain.assembly)."""
+    """Single-k assembly (Main -> ReflexivDSMain.assembly). Under
+    ``REFLEXIV_INGEST_BUDGET_MB`` the reads are counted from disk in
+    bounded chunks and the read matrix is never built."""
     from .assembler import assemble_from_counts, assemble_reads
     from .contigs import assembly_stats, write_assembly_report
-    from .io import write_contigs_fasta, write_success_marker
+    from .io import (ingest_budget_bytes, write_contigs_fasta,
+                     write_success_marker)
     from .kmer_io import read_count_table
 
     met = metrics.current()
@@ -218,6 +240,20 @@ def cmd_run(params: Params, seed: int, device) -> None:
         met.lap("run/ingest")
         contigs = assemble_from_counts(
             keys[keep], counts[keep], params, seed=seed, device=device)
+    elif ingest_budget_bytes():
+        from .count import count_kmers_from_files
+
+        keys, counts = count_kmers_from_files(
+            _pattern(params), k=params.k, min_cov=params.min_kmer_coverage,
+            max_cov=params.max_kmer_coverage, front_clip=params.front_clip,
+            end_clip=params.end_clip, params=params,
+            budget_bytes=ingest_budget_bytes(), device=device)
+        synchronize(device)
+        met.lap("run/counting")
+        met.set("run/solid_kmers", counts.numel())
+        contigs = assemble_from_counts(keys, counts, params, seed=seed,
+                                       device=device)
+        met.set("run/contigs", len(contigs))
     else:
         mat, lens = _load_read_matrix(params)
         met.lap("run/ingest")
@@ -314,9 +350,16 @@ def main(argv=None) -> int:
     t0 = time.time()
     m = metrics.reset()
     handler = globals()[f"cmd_{args.command}"]
+    before = launch_counts()
+    if device.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(device)
     with m.stage(args.command):
         handler(params, args.seed, device)
         synchronize(device)
+    for name, n in launch_counts().items():
+        m.set(f"launches/{name}", n - before.get(name, 0))
+    if device.type == "cuda":
+        m.set("device/peak_bytes", torch.cuda.max_memory_allocated(device))
     if params.output_path:
         path = m.write(params.output_path)
         log.info("metrics written to %s", path)

@@ -303,12 +303,15 @@ def dynamic_reduction(params: Params, *, seed: int = 0, device,
     With ``-accurate`` each k's table is the solid + mercy table
     (:func:`mercy.mercy_kmer_table`, ``Pipelines.java:1388-1391``).
 
-    Not ported: ``REFLEXIV_INGEST_BUDGET_MB`` (out-of-core counting; it is
-    not read, and the whole read matrix is loaded). The port runs on one
-    device.
+    Under ``REFLEXIV_INGEST_BUDGET_MB`` every count streams from disk
+    (:func:`count.count_kmers_from_files`) and the read matrix is loaded
+    only for ``-accurate``'s mercy tables; the klist is cut by the longest
+    read, scanned from the files. The port runs on one device.
     """
     del seed   # reduce draws nothing at random
-    from .io import load_reads_filtered
+    from .count import count_kmers_from_files
+    from .io import (ingest_budget_bytes, load_reads_filtered,
+                     scan_max_read_length)
 
     for k in params.klist:
         check_k(k)
@@ -317,18 +320,34 @@ def dynamic_reduction(params: Params, *, seed: int = 0, device,
     out = params.output_path
     _guard_reduce_signature(out, params)
     pattern = params.input_fastq or params.input_fasta
-    with _lap("ingest", device):
-        mat, lens = load_reads_filtered(pattern, params)
-        read_width = mat.shape[1]
-        mat = torch.from_numpy(mat).to(device)
-        lens = torch.from_numpy(lens).to(device)
+    budget = ingest_budget_bytes()
+    loaded = []
+
+    def reads():
+        """The read matrix on the device, loaded when first needed."""
+        if not loaded:
+            with _lap("ingest", device):
+                mat, lens = load_reads_filtered(pattern, params)
+                loaded.extend(torch.from_numpy(x).to(device)
+                              for x in (mat, lens))
+        return loaded
+
+    if budget:
+        with _lap("ingest", device):
+            read_width = scan_max_read_length(pattern)
+    else:
+        read_width = reads()[0].shape[1]
 
     def count_k(k, min_cov, max_cov):
+        clips = dict(k=k, min_cov=min_cov, max_cov=max_cov,
+                     front_clip=params.front_clip, end_clip=params.end_clip,
+                     device=device, plain=plain)
         with _lap("count", device):
-            return count_kmers_auto(
-                mat, lens, k=k, min_cov=min_cov, max_cov=max_cov,
-                front_clip=params.front_clip, end_clip=params.end_clip,
-                partitions=params.partitions, device=device, plain=plain)
+            if budget:
+                return count_kmers_from_files(
+                    pattern, params=params, budget_bytes=budget, **clips)
+            return count_kmers_auto(*reads(), partitions=params.partitions,
+                                    **clips)
 
     def write_set(directory, triple, k):
         with _lap("write", device):
@@ -351,6 +370,7 @@ def dynamic_reduction(params: Params, *, seed: int = 0, device,
             keys, counts = keys.to(device), counts.to(device)
         else:
             if params.sensitive:
+                mat, lens = reads()
                 with _lap("count", device):
                     keys, counts = mercy_kmer_table(
                         mat, lens, k=k, min_cov=params.min_kmer_coverage,

@@ -1,7 +1,9 @@
 """Host-side sequence IO (the host half of ``reflexiv_tpu.io``, without jax).
 
 FASTQ/FASTA readers into a ``(R, L)`` uint8 2-bit code matrix plus lengths,
-and the FASTA contig / ``_SUCCESS`` writers. Replaces the reference's
+bounded read chunks straight from disk for out-of-core counting
+(:func:`iter_read_chunks`, under ``REFLEXIV_INGEST_BUDGET_MB``), and the
+FASTA contig / ``_SUCCESS`` writers. Replaces the reference's
 Spark-side file plumbing (``ReflexivDSMain.java:4037-4072``,
 ``:715-795``). Everything here is numpy; the caller moves the matrix to its
 device.
@@ -162,6 +164,121 @@ def load_reads_filtered(pattern: str, params) -> Tuple[np.ndarray, np.ndarray]:
     if params.read_limit > 0:
         mat, lens = mat[: params.read_limit], lens[: params.read_limit]
     return mat, lens
+
+
+def ingest_budget_bytes() -> int:
+    """Out-of-core ingest budget from ``REFLEXIV_INGEST_BUDGET_MB`` (0, the
+    default, or a value that is not an integer: off, whole-matrix
+    loading). When set, ``counter``, ``run``, ``reduce`` and ``meta``'s
+    stage 00 count bounded chunks streamed from disk
+    (``io.ingest_budget_bytes``)."""
+    try:
+        return int(os.environ.get("REFLEXIV_INGEST_BUDGET_MB", "0")) << 20
+    except ValueError:
+        return 0
+
+
+def scan_max_read_length(pattern: str) -> int:
+    """Longest read across the input, without loading it: the native
+    one-pass scan where it applies, else the incremental readers
+    (``io.scan_max_read_length``)."""
+    from . import native
+
+    lib = native._get_lib()
+    best = 0
+    for path in expand_paths(pattern):
+        if lib is not None and not path.endswith(".bz2"):
+            try:
+                n, mx = native._scan(lib, path, 0)
+                if n == 0:
+                    _n, mx = native._scan(lib, path, 1)
+                best = max(best, mx)
+                continue
+            except OSError:
+                pass
+        for s in _iter_sequences(path):
+            best = max(best, len(s))
+    return best
+
+
+def _sniff_fasta(path: str) -> bool:
+    with _open_maybe_gzip(path) as fh:
+        return fh.read(1) == b">"
+
+
+def _iter_sequences(path: str) -> Iterator[bytes]:
+    """One file's read sequences, FASTA or FASTQ by its first byte."""
+    if _sniff_fasta(path):
+        return (s for _, s in iter_fasta([path]))
+    return iter_fastq([path])
+
+
+def iter_read_chunks(
+    pattern: str, params=None, *, budget_bytes: int = 1 << 30,
+) -> Iterator[Tuple[np.ndarray, np.ndarray]]:
+    """Yield ``(codes, lens)`` read matrices of about ``budget_bytes`` of
+    input each, in file order, straight from disk
+    (``io.iter_read_chunks``): plain FASTQ through the native byte-range
+    splitter (:func:`native.iter_split_chunks`), gzip, bz2 and FASTA
+    through the incremental readers. ``params`` applies the ``-minlength``
+    and ``-reads`` filters on the fly, so the chunks' rows are
+    :func:`load_reads_filtered`'s rows.
+
+    A chunk is as wide as its longest read and holds only real rows: the
+    JAX package pads rows to a power of two and the width to a multiple of
+    32 to bound its recompiles, which changes no table."""
+    from . import native
+
+    minlen = params.min_read_length if params is not None else 0
+    remaining = (params.read_limit
+                 if params is not None and params.read_limit > 0 else None)
+
+    def finish(mat, lens):
+        nonlocal remaining
+        if minlen > 0:
+            keep = lens >= minlen
+            mat, lens = mat[keep], lens[keep]
+        if remaining is not None:
+            mat, lens = mat[:remaining], lens[:remaining]
+            remaining -= len(lens)
+        return (mat, lens) if len(lens) else None
+
+    buf: List[bytes] = []
+    cells = 0
+
+    def flush():
+        nonlocal buf, cells
+        got = finish(*reads_to_matrix(buf)) if buf else None
+        buf, cells = [], 0
+        return got
+
+    for path in expand_paths(pattern):
+        if remaining == 0:
+            break
+        split_iter = native.iter_split_chunks(path, budget_bytes)
+        if split_iter is not None:
+            pending = flush()
+            if pending is not None:
+                yield pending
+            for mat, lens in split_iter:
+                if remaining == 0:
+                    break
+                got = finish(mat, lens)
+                if got is not None:
+                    yield got
+            continue
+        for seq in _iter_sequences(path):
+            buf.append(seq)
+            cells += max(len(seq), 1)
+            if cells >= budget_bytes:
+                got = flush()
+                if got is not None:
+                    yield got
+                if remaining == 0:
+                    break
+    got = flush()
+    if got is not None:
+        yield got
 
 
 def contigs_to_segment_matrix(

@@ -12,7 +12,9 @@ its default for this stage on every platform).
 
 The index holds one int64 per read window: the top bits of the window's
 canonical k-mer above the window's id. The extraction kernel cuts the
-canonical keys and the one-word radix kernel sorts the entries. A lookup
+canonical keys and the one-word radix kernel sorts the entries, in row
+chunks of at most 2^30 windows each searched in turn, so any number of
+reads fits the sort's 32-bit offsets. A lookup
 takes the entries whose top bits match the query's canonical k-mer
 (``torch.searchsorted``) and checks each against the read bases: the
 window's canonical k-mer must equal the query's, and which strand equals
@@ -38,6 +40,7 @@ MIN_SUPPORT = 2       # reads required to accept an extension column
 MAJORITY_TENTHS = 7   # column majority, 0.7 as tenths
 HIT_CHUNK = 1 << 17   # hits voted per bincount
 ENTRY_BITS = 62       # the radix kernel sorts 62-bit words
+INDEX_WINDOWS = 1 << 30   # windows one sorted index chunk holds
 
 
 def _pack(codes: torch.Tensor, k: int) -> torch.Tensor:
@@ -57,8 +60,11 @@ def _canonical(fwd: torch.Tensor, k: int) -> torch.Tensor:
 
 
 class WindowIndex:
-    """Every ``k``-base window of a read matrix (odd ``k`` <= 31) as sorted
-    int64 entries ``(canonical key >> shift) << id_bits | window id``;
+    """Every ``k``-base window of a read matrix (odd ``k`` <= 31), in row
+    chunks of at most :data:`INDEX_WINDOWS` windows. Each chunk holds
+    sorted int64 entries ``(canonical key >> shift) << id_bits | window
+    id`` for its own windows, so ``id_bits`` stays at most 30 and the
+    radix sort's 32-bit offsets never bind, whatever the read count;
     ``plain=True`` cuts and sorts them with the kernels' plain torch
     versions."""
 
@@ -71,45 +77,56 @@ class WindowIndex:
         self.lengths = lengths.to(torch.int64)
         R, L = bases.shape
         self.wn = max(L - k + 1, 0)
-        n = R * self.wn
-        self.id_bits = max(n - 1, 1).bit_length()
-        self.shift = max(2 * k - (ENTRY_BITS - self.id_bits), 0)
-        if n == 0:
-            self.entries = torch.zeros(0, dtype=torch.int64,
-                                       device=bases.device)
-            return
-        lens32 = lengths.to(torch.int32)
+        rows = max(1, INDEX_WINDOWS // max(self.wn, 1))
+        self.chunks = [self._chunk(lo, min(lo + rows, R), plain)
+                       for lo in range(0, R, rows) if self.wn]
+
+    def _chunk(self, lo: int, hi: int, plain: bool):
+        """``(first row, id_bits, shift, sorted entries)`` of rows
+        ``[lo, hi)``."""
+        k, n = self.k, (hi - lo) * self.wn
+        id_bits = max(n - 1, 1).bit_length()
+        shift = max(2 * k - (ENTRY_BITS - id_bits), 0)
+        bases, lens32 = self.bases[lo:hi], self.lengths[lo:hi].to(torch.int32)
         if plain:
             keys = extract_mod.extract_canonical_keys_torch(
                 bases, lens32, k=k)
         else:
             keys = extract_mod.extract_canonical_keys(bases, lens32, k=k)
-        keys = ((keys >> self.shift) << self.id_bits) | torch.arange(
+        keys = ((keys >> shift) << id_bits) | torch.arange(
             n, dtype=torch.int64, device=bases.device)
-        self.entries = radix_sort.sort_keys_torch(keys) if plain else \
+        entries = radix_sort.sort_keys_torch(keys) if plain else \
             radix_sort.sort_keys(keys, bits=ENTRY_BITS)
+        return lo, id_bits, shift, entries
 
     def hits(self, query: torch.Tensor):
         """Forward query keys (C,) -> (owner, row, end, strand) of every
         hit: the window of ``k`` bases ending at ``end`` on ``strand`` (0
         the read, 1 its reverse complement) of read ``row`` equals query
-        ``owner``."""
+        ``owner``. Hits come chunk by chunk."""
         k, dev = self.k, query.device
         canon = _canonical(query, k)
-        top = canon >> self.shift
-        lo = torch.searchsorted(self.entries, top << self.id_bits)
-        cnt = torch.searchsorted(self.entries, (top + 1) << self.id_bits) - lo
-        owner = torch.repeat_interleave(
-            torch.arange(len(query), device=dev), cnt)
-        first = torch.cumsum(cnt, 0) - cnt
-        ptr = lo[owner] + torch.arange(owner.numel(), device=dev) \
-            - first[owner]
-        wid = self.entries[ptr] & ((1 << self.id_bits) - 1)
-        row, j = wid // self.wn, wid % self.wn
+        owners, rows, js = [], [], []
+        for lo, id_bits, shift, entries in self.chunks:
+            top = canon >> shift
+            first = torch.searchsorted(entries, top << id_bits)
+            cnt = torch.searchsorted(entries, (top + 1) << id_bits) - first
+            owner = torch.repeat_interleave(
+                torch.arange(len(query), device=dev), cnt)
+            ptr = first[owner] + torch.arange(owner.numel(), device=dev) \
+                - (torch.cumsum(cnt, 0) - cnt)[owner]
+            wid = entries[ptr] & ((1 << id_bits) - 1)
+            owners.append(owner)
+            rows.append(lo + wid // self.wn)
+            js.append(wid % self.wn)
+        owner, row, j = (torch.cat(t) if t else
+                         torch.zeros(0, dtype=torch.int64, device=dev)
+                         for t in (owners, rows, js))
         n = self.lengths[row]
         cols = (j[:, None] + torch.arange(k, device=dev)).clamp(
             max=self.bases.shape[1] - 1)
         fwd = _pack(self.bases[row[:, None], cols], k)
+        # a candidate shares only the key's top bits: its bases decide
         ok = (j + k <= n) & (_canonical(fwd, k) == canon[owner])
         owner, row, j, n, fwd = (t[ok] for t in (owner, row, j, n, fwd))
         strand = (fwd != query[owner]).to(torch.int64)
@@ -127,7 +144,7 @@ def batch_extensions(seqs: List[str], active: List[int], index: WindowIndex,
                      anchor: int, max_tail: int) -> List[np.ndarray]:
     """One consensus round for every active contig: the codes each one
     grows by (``mapping._batch_extensions_device``)."""
-    dev = index.entries.device
+    dev = index.bases.device
     C = len(active)
     owner, rows, ends, strand = index.hits(
         _anchor_keys([seqs[i][-anchor:] for i in active], anchor, dev))

@@ -26,8 +26,8 @@ from typing import Tuple
 import torch
 
 from . import metrics
-from .bitpack import num_words, rows_less_equal
-from .count import _as_device, count_kmers
+from .bitpack import num_words, searchsorted_rows
+from .count import _as_device, count_kmers_auto
 from .device import resolve_device, synchronize
 from .kernels import extract as extract_mod
 
@@ -35,22 +35,6 @@ log = logging.getLogger("reflexiv_tpu_torch")
 
 # windows one mercy pass takes, table included (``dynamic.STREAM_WINDOW_LIMIT``)
 STREAM_WINDOW_LIMIT = 1 << 27
-
-
-def _searchsorted_rows(table: torch.Tensor, query: torch.Tensor
-                       ) -> torch.Tensor:
-    """Leftmost insertion position of each ``(N, W)`` query row among the
-    lexicographically sorted ``(U, W)`` table rows."""
-    U = table.shape[0]
-    lo = torch.zeros(query.shape[0], dtype=torch.int64, device=query.device)
-    hi = torch.full_like(lo, U)
-    for _ in range(max(U.bit_length(), 1)):
-        active = lo < hi
-        mid = ((lo + hi) >> 1).clamp(max=U - 1)
-        go_right = ~rows_less_equal(query, table[mid])   # table[mid] < query
-        lo = torch.where(active & go_right, mid + 1, lo)
-        hi = torch.where(active & ~go_right, mid, hi)
-    return lo
 
 
 def lookup_counts(table_keys: torch.Tensor, table_counts: torch.Tensor,
@@ -66,7 +50,7 @@ def lookup_counts(table_keys: torch.Tensor, table_counts: torch.Tensor,
     if table_keys.dim() == 1:
         pos = torch.searchsorted(table_keys, query_keys)
     else:
-        pos = _searchsorted_rows(table_keys, query_keys)
+        pos = searchsorted_rows(table_keys, query_keys)
     pos = pos.clamp(max=U - 1)
     eq = table_keys[pos] == query_keys
     if eq.dim() == 2:
@@ -121,7 +105,8 @@ def mercy_kmer_table(bases, lengths, *, k: int, min_cov: int,
                      ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Solid + mercy k-mer table for ``-accurate`` (``mercy
     .mercy_kmer_table``): the min_cov = 1 table of the reads (no clips, as
-    the JAX package counts it), restricted to the k-mers of at least
+    the JAX package counts it; streamed past one pass's windows,
+    :func:`count.count_kmers_auto`), restricted to the k-mers of at least
     ``min_cov`` and those a mercy window holds. Keys ascending, as
     :func:`count.count_kmers` returns them, on ``device``. The windows go
     through in read-row blocks so table + block stay under
@@ -130,8 +115,9 @@ def mercy_kmer_table(bases, lengths, *, k: int, min_cov: int,
     device = resolve_device(device)
     b = _as_device(bases, torch.uint8, device)
     lens = _as_device(lengths, torch.int32, device)
-    keys, counts = count_kmers(b, lens, k=k, min_cov=1, max_cov=max_cov,
-                               device=device, plain=plain)
+    keys, counts = count_kmers_auto(b, lens, k=k, min_cov=1,
+                                    max_cov=max_cov, device=device,
+                                    plain=plain)
     solid = counts >= min_cov
     R, L = b.shape
     Wn = max(L - k + 1, 0)

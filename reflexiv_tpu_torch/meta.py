@@ -22,8 +22,11 @@ The loop is the JAX package's summary-indexed form
 (``REFLEXIV_INDEXED_ALWAYS=1``): one device call per round on all rows.
 Its hash buckets, slab tiers and prefetch thread existed for the TPU
 compiler and are not here; a bucket never split a group and kept pool
-order inside it, so one call makes the same joins. Not ported: the mesh
-path and ``REFLEXIV_INGEST_BUDGET_MB``.
+order inside it, so one call makes the same joins. Under
+``REFLEXIV_INGEST_BUDGET_MB`` stage 00 counts every k it lacks in one
+streaming pass over the files (:func:`count.count_kmers_from_files_multi`);
+the reads are still loaded for stage 04, as in the JAX package. Not
+ported: the mesh path.
 """
 from __future__ import annotations
 
@@ -42,7 +45,7 @@ from . import metrics
 from . import packed_dyn as pd
 from .bitpack import (MASK32, decode_to_str, encode_ascii, pack_bases,
                       revcomp_bases)
-from .count import count_kmers_auto
+from .count import count_kmers_auto, count_kmers_from_files_multi
 from .device import resolve_device, synchronize
 from .dyn_pool import (DynRecords, PackedDynRecords, RaggedPool,
                        from_dyn_host, groups_to_dense, host_concat_packed,
@@ -53,7 +56,7 @@ from .dyn_pool import (DynRecords, PackedDynRecords, RaggedPool,
 from .dynamic import (_count_signature, read_sorted_set, reduce_k_pair,
                       sort_k_records)
 from .graph import build_initial_records
-from .io import has_success_marker
+from .io import has_success_marker, ingest_budget_bytes
 from .mercy import mercy_kmer_table
 from .params import Params
 from .records import REPEAT_KILLED
@@ -630,16 +633,30 @@ def assemble_dynamic(bases, lengths, params: Params, *, seed: int = 0,
                 if ckpt.has_kset(workdir, f"00partial/k{k}"):
                     sorted_sets[k] = ckpt.load_kset(workdir,
                                                     f"00partial/k{k}")
-        for k in (k for k in klist if k not in sorted_sets):
-            mat, lens = on_device()
-            if params.sensitive:
+        missing = [k for k in klist if k not in sorted_sets]
+        pattern = params.input_fastq or params.input_fasta
+        budget = ingest_budget_bytes()
+        streamed = None
+        if budget and pattern and missing and not params.sensitive:
+            # one pass over the files counts every k not checkpointed
+            streamed = count_kmers_from_files_multi(
+                pattern, missing, min_cov=params.min_kmer_coverage,
+                max_cov=params.max_kmer_coverage,
+                front_clip=params.front_clip, end_clip=params.end_clip,
+                params=params, budget_bytes=budget, device=device,
+                plain=plain)
+        for k in missing:
+            if streamed is not None:
+                keys, counts = streamed.pop(k)
+            elif params.sensitive:
                 # mercy k-mers enter the ladder per k
                 # (Pipelines.java:1388-1391)
                 keys, counts = mercy_kmer_table(
-                    mat, lens, k=k, min_cov=params.min_kmer_coverage,
+                    *on_device(), k=k, min_cov=params.min_kmer_coverage,
                     max_cov=params.max_kmer_coverage, device=device,
                     plain=plain)
             else:
+                mat, lens = on_device()
                 keys, counts = count_kmers_auto(
                     mat, lens, k=k, min_cov=params.min_kmer_coverage,
                     max_cov=params.max_kmer_coverage,

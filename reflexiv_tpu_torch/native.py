@@ -3,7 +3,8 @@
 The same ``native/libreflexiv_native.so`` that ``reflexiv_tpu.native``
 loads, built on demand with ``make -C native`` (g++ + zlib). Bound here:
 :func:`load_reads_native` decodes FASTQ/FASTA files straight into 2-bit
-code matrices, :func:`dedup_contigs_native` drops contigs contained in
+code matrices, :func:`iter_split_chunks` streams a plain FASTQ file in
+bounded byte-range chunks, :func:`dedup_contigs_native` drops contigs contained in
 longer ones, patching's four entries (:func:`end_index_native`,
 :func:`map_pairs_hashed_native`, :func:`map_pairs_native`,
 :func:`best_overlap_native`), and preprocessing's pair overlap
@@ -272,6 +273,49 @@ def load_reads_native(
         # changed mid-read: rows would be misplaced in the matrix
         raise OSError(f"native load row mismatch for {paths}")
     return codes, lens
+
+
+def iter_split_chunks(path: str, budget_bytes: int):
+    """``(codes, lens)`` matrices of one plain FASTQ file, one per byte
+    range of about ``budget_bytes``, each parsed only when the generator
+    reaches it (``native.iter_split_chunks``): host memory holds one
+    range's matrix, never the file's. Each range is cut again into up to
+    ``_N_THREADS`` record-aligned pieces parsed by as many threads.
+    Returns None (the caller takes the Python reader) when the library is
+    missing or the file is not plain FASTQ."""
+    lib = _get_lib()
+    if lib is None or not _is_plain_fastq(path):
+        return None
+    size = os.path.getsize(path)
+    nsplits = max(1, -(-size // max(budget_bytes, 1 << 20)))
+    per = max(1, min(_N_THREADS, size // (1 << 20)))
+    aligned = _splits_of(lib, path, nsplits * per)
+
+    def gen():
+        for i in range(nsplits):
+            sub = np.ascontiguousarray(aligned[i * per: (i + 1) * per + 1])
+            counts = np.zeros(per, np.int64)
+            maxlens = np.zeros(per, np.int64)
+            lib.rfx_fastq_scan_mt(
+                path.encode(), sub.ctypes.data_as(_I64P), per,
+                counts.ctypes.data_as(_I64P), maxlens.ctypes.data_as(_I64P))
+            n, mx = int(counts.sum()), int(maxlens.max())
+            if n == 0:
+                continue
+            codes = np.zeros((n, mx), np.uint8)
+            lens = np.zeros(n, np.int32)
+            row_off = np.concatenate([[0], np.cumsum(counts[:-1])]).astype(
+                np.int64)
+            got = lib.rfx_fastq_load_mt(
+                path.encode(), sub.ctypes.data_as(_I64P),
+                row_off.ctypes.data_as(_I64P), per,
+                codes.ctypes.data_as(_U8P),
+                lens.ctypes.data_as(ctypes.POINTER(ctypes.c_int32)), mx)
+            if got != n:
+                raise OSError(f"native split load mismatch for {path}")
+            yield codes, lens
+
+    return gen()
 
 
 # ---------------------------------------------------------------------------

@@ -44,7 +44,7 @@ import torch.nn.functional as F
 from . import metrics
 from .bitpack import (CODE_TO_BASE, encode_ascii, num_limbs, num_words,
                       revcomp_matrix, rolling_window_values)
-from .count import count_kmers
+from .count import count_kmers_auto
 from .device import resolve_device
 from .mercy import window_counts
 from .params import Params
@@ -106,7 +106,7 @@ def _solid_table(mat, lens, k: int, min_cov: int, *, device,
     keys and counts are :func:`count.count_kmers`' table on ``device``."""
     if num_limbs(k) > 2:
         raise ValueError("correction supports k <= 31")
-    keys, counts = count_kmers(mat, lens, k=k, min_cov=min_cov,
+    keys, counts = count_kmers_auto(mat, lens, k=k, min_cov=min_cov,
                                device=device, plain=plain)
     kn = keys.cpu().numpy()
     if num_words(k) == 1:

@@ -21,7 +21,7 @@ from . import metrics
 from .assembler import initial_records_from_counts, run_extension_loop
 from .bitpack import canonical_rows, num_words, pack_bases, revcomp_bases
 from .contigs import emit_contigs, revcomp_str
-from .count import count_kmers
+from .count import count_kmers_auto
 from .io import contigs_to_segment_matrix, reads_to_matrix
 from .kernels import extract as extract_mod
 from .mercy import lookup_counts
@@ -145,7 +145,7 @@ def reassemble_arrays(bases, lengths, fragments: List[str], params: Params,
     fragment windows through the kernels' plain torch versions."""
     from .meta import dedup_contigs
 
-    keys, counts = count_kmers(
+    keys, counts = count_kmers_auto(
         bases, lengths, k=params.k, min_cov=params.min_kmer_coverage,
         max_cov=params.max_kmer_coverage, front_clip=params.front_clip,
         end_clip=params.end_clip, device=device, plain=plain)

@@ -30,7 +30,7 @@ import torch
 
 from . import chains, metrics
 from .assembler import initial_records_from_counts
-from .count import _as_device, count_kmers
+from .count import _as_device, count_kmers_auto
 from .device import resolve_device, synchronize
 from .params import Params
 from .reassemble import remove_fragment_kmers
@@ -93,7 +93,7 @@ def stitch_contigs(bases, lengths, contigs: List[str], params: Params, *,
         p = dataclasses.replace(params, k=k, min_kmer_coverage=1)
         recs = _stitch_records_from_table(params, k, device)
         if recs is None:
-            keys, counts = count_kmers(
+            keys, counts = count_kmers_auto(
                 bases, lengths, k=k, min_cov=1,
                 max_cov=params.max_kmer_coverage, device=device, plain=plain)
             recs, _n_live = initial_records_from_counts(keys, counts, p)
