@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch + CUDA port (``reflexiv_tpu_torch``) on one NVIDIA card.
 
-    python3 chip_smoke.py [--seed N]
+    python3 chip_smoke.py [--seed N] [--mesh-walls]
 
 Needs a CUDA card and ``nvcc``; exits non-zero, with no result line, where
 ``torch.cuda.is_available()`` is False or the package is not beside this
@@ -121,7 +121,27 @@ script. Phases, one line each:
   under a 1 MB budget through the kernels, byte-identical to phases 8 and
   10's whole-matrix plain-path files (the ``reduce`` tree,
   ``Assembly/part-00000`` and ``steps/00sorted``), and end extension with
-  its window index in five chunks, equal to one chunk.
+  its window index in five chunks, equal to one chunk;
+  18. ``run`` on a device mesh (``reflexiv_tpu_torch.parallel``): (a)
+     phase 4's FASTQ through ``cli.cmd_run`` on one card (warm, for the
+     walls) and then with ``mesh=`` 4 virtual shards of ``cuda:0``
+     (hash-routed counting, fork passes, rounds and census): the mesh's
+     canonical contig set equal to phase 4's, extraction and the sort
+     launched once per shard, rounds within 3 of phase 4's; then each
+     shard's counting pass holds extraction and the sort to their plain
+     versions, and ``count_kmers_sharded`` (min_cov 1) through the
+     kernels equals it through the plain versions, shard for shard; (b)
+     the 200 kb genome on that mesh, kernel path against plain path,
+     identical contig lists; (c) where the machine has several cards,
+     ``cli.main(["run", ..., "-device", "cuda:0"])`` and ``"-device",
+     "cuda"`` (a mesh over every card) in turns, one, mesh, mesh, one,
+     each with phase 4's canonical set and its wall (on one card a line
+     says it did not run).
+
+The script is written for one card: on a machine with several, ``run
+-device cuda`` meshes over all of them, so phases 4-17 would take the
+mesh. There ``--mesh-walls`` runs phase 1's build, phase 4's input and
+18c alone.
 
 Phases 2 and 3 also hold the W-word extraction and row sort (k = 61, 81
 and 95: W = 2, 3 and 4 words) to their plain versions on the main path's
@@ -302,6 +322,9 @@ def contig_seqs(path: str):
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--mesh-walls", action="store_true",
+                    help="only phase 18c's walls: run on one card and on a "
+                         "mesh over every card, in turns")
     args = ap.parse_args(argv)
 
     import torch
@@ -319,6 +342,8 @@ def main(argv=None) -> int:
         print(f"chip_smoke: the reflexiv_tpu_torch package is not beside "
               f"this script ({e})", file=sys.stderr)
         return 1
+    if args.mesh_walls:
+        return mesh_walls_only(torch, args)
     dev = torch.device("cuda:0")
     rng = np.random.default_rng(args.seed)
 
@@ -443,13 +468,14 @@ def main(argv=None) -> int:
         fq = os.path.join(work, "reads.fq")
         write_fastq(fq, reads)
         del reads
-        phases_4_to_8(torch, args, dev, work, fq, genome, launches, rows,
-                      bounds, library)
+        rounds4 = phases_4_to_8(torch, args, dev, work, fq, genome,
+                                launches, rows, bounds, library)
         phases_11_12(torch, args, dev, work, genome, launches)
         phases_13_16(torch, args, dev, work, fq, genome, launches)
         phase_17(torch, args, work, launches, rows)
         phase_17b(torch, dev, work, fq, launches)
         checks_200kb_streaming(torch, args, dev, work)
+        phase_18(torch, args, work, fq, rounds4, launches, rows)
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
@@ -510,9 +536,10 @@ def gather_trains(torch, partition, src, tiles, label):
 
 
 def phases_4_to_8(torch, args, dev, work, fq, genome, launches, rows,
-                  bounds, library) -> None:
+                  bounds, library) -> int:
     """The run, probe and reduce paths, each driven with the launch counts
-    set to 0 just before it and read just after; ``launches`` sums them."""
+    set to 0 just before it and read just after; ``launches`` sums them.
+    Returns phase 4's extension rounds."""
     from reflexiv_tpu_torch import cli, count, metrics, probes
     from reflexiv_tpu_torch.assembler import (assemble_from_counts,
                                               assemble_reads)
@@ -545,7 +572,7 @@ def phases_4_to_8(torch, args, dev, work, fq, genome, launches, rows,
     contigs = contig_seqs(part)
     with open(os.path.join(out, "metrics.json")) as fh:
         met = json.load(fh)
-    shutil.copy(part, os.path.join(work, "run31.fa"))   # phases 15-16
+    shutil.copy(part, os.path.join(work, "run31.fa"))   # phases 15, 16, 18
     shutil.rmtree(out)
     stats = assembly_stats(contigs)
     share = stats["total_bp"] / GENOME_BP
@@ -553,6 +580,7 @@ def phases_4_to_8(torch, args, dev, work, fq, genome, launches, rows,
     rc_str = ACGT[3 - genome[::-1]].tobytes().decode()
     exact = sum(len(c) for c in canonical_set(contigs)
                 if c in gstr or c in rc_str)
+    rounds4 = met["counters"]["run/extension_rounds"]
     say(f"phase 4 run: {wall:.1f} s wall; contigs {stats['n_contigs']} "
         f"(canonical), total {stats['total_bp']} bp = {share:.4f} x genome, "
         f"longest {stats['longest']}, N50 {stats['n50']}, exact-match bp "
@@ -728,6 +756,7 @@ def phases_4_to_8(torch, args, dev, work, fq, genome, launches, rows,
             f"{len(lists[0])} contigs, canonical total {st['total_bp']} bp, "
             f"{fragments[0]} contigs through reassembly; {walls[0]:.1f} s "
             f"vs {walls[1]:.1f} s")
+    return rounds4
 
 
 def meta_phase(torch, cli, fq, rout, genome):
@@ -1839,6 +1868,212 @@ def checks_200kb_streaming(torch, args, dev, work) -> None:
                          f"from one, or nothing grew ({grown} bases)")
     say(f"checks 200 kb end extension: window index in {n_chunks} chunks == "
         f"one chunk on {len(contigs)} trimmed contigs, {grown} bases grown")
+
+
+# ---------------------------------------------------------------------------
+# phase 18: run on a device mesh
+# ---------------------------------------------------------------------------
+
+MESH_SHARDS = 4   # virtual shards of cuda:0
+
+
+def phase_18(torch, args, work, fq, rounds4, launches, rows) -> None:
+    """18a: phase 4's reads through ``cli.cmd_run`` on one card (warm, for
+    the comparison) and then on a mesh of :data:`MESH_SHARDS` virtual
+    shards of ``cuda:0``, each with the launch counts set to 0 just before
+    it; the mesh's canonical contig set must equal phase 4's, every shard
+    must extract and sort, and its rounds must lie within 3 of phase 4's.
+    Then, on the same reads and mesh, each shard's counting pass holds the
+    extraction kernel and the sort to their plain versions (their max
+    errors go into ``rows``), and ``count_kmers_sharded`` at min_cov 1
+    through the kernels equals it through the plain versions, shard for
+    shard. 18b: the 200 kb genome on that mesh, kernel path against plain
+    path. 18c: :func:`mesh_walls` where there are several cards."""
+    from reflexiv_tpu_torch import cli, metrics, parallel
+    from reflexiv_tpu_torch.contigs import assembly_stats, canonical_set
+    from reflexiv_tpu_torch.kernels import extract, radix_sort
+    from reflexiv_tpu_torch.params import Params
+
+    want = canonical_set(contig_seqs(os.path.join(work, "run31.fa")))
+    dev = torch.device("cuda", 0)
+    mesh = parallel.make_mesh([dev] * MESH_SHARDS)
+    out = os.path.join(work, "asm_mesh")
+    params = Params(k=31, min_kmer_coverage=3, input_fastq=fq,
+                    output_path=out)
+
+    def drive(mesh):
+        """One ``cmd_run``: (wall, peak bytes, launches, metrics,
+        contigs)."""
+        m = metrics.reset()
+        torch.cuda.reset_peak_memory_stats(dev)
+        zero_launches(extract, radix_sort)
+        t0 = time.perf_counter()
+        cli.cmd_run(params, args.seed, dev, mesh=mesh)
+        torch.cuda.synchronize(dev)
+        wall = time.perf_counter() - t0
+        got = {name: n for name, n in path_launches().items() if n}
+        for name, n in got.items():
+            launches[name] = launches.get(name, 0) + n
+        contigs = contig_seqs(os.path.join(out, "part-00000"))
+        shutil.rmtree(out)
+        return (wall, torch.cuda.max_memory_allocated(dev), got, m,
+                contigs)
+
+    one_wall, one_peak, _got, one, _contigs = drive(None)
+    wall, peak, got, m, contigs = drive(mesh)
+    counters, stages = dict(m.counts), m.snapshot()["stages_s"]
+    rounds = counters["sharded/extension_rounds"]
+    stats = assembly_stats(contigs)
+    if canonical_set(contigs) != want:
+        raise SystemExit("phase 18a: the mesh's canonical contigs differ "
+                         "from phase 4's")
+    if got.get("extract", 0) < MESH_SHARDS or got.get("sort", 0) < \
+            MESH_SHARDS:
+        raise SystemExit(f"phase 18a: a shard skipped a kernel: {got}")
+    if abs(rounds - rounds4) > 3:
+        raise SystemExit(f"phase 18a: {rounds} rounds, phase 4 {rounds4}")
+
+    # each shard's counting pass, kernel against plain, then the tables
+    mat, lens = cli._load_read_matrix(params)
+    errs = {"extract": 0, "sort": 0}
+    passes = parallel.shard_passes(mat.shape[0], mat.shape[1], 31, mesh)
+    for lo, hi in (r for ranges in passes for r in ranges if r[1] > r[0]):
+        b = torch.from_numpy(mat[lo:hi]).to(dev, torch.uint8)
+        ln = torch.from_numpy(lens[lo:hi]).to(dev, torch.int32)
+        keys = extract.extract_canonical_keys(b, ln, k=31)
+        errs["extract"] = max(errs["extract"], exact_err(
+            "phase 18a extract", keys,
+            extract.extract_canonical_keys_torch(b, ln, k=31)))
+        errs["sort"] = max(errs["sort"], exact_err(
+            "phase 18a sort", radix_sort.sort_keys(keys, bits=62),
+            radix_sort.sort_keys_torch(keys)))
+        del b, ln, keys
+    for key, err in errs.items():
+        e, ms, pms = rows[key]
+        rows[key] = (max(e, err), ms, pms)
+    tables = [parallel.count_kmers_sharded(mat, lens, k=31, min_cov=1,
+                                           mesh=mesh, plain=plain)
+              for plain in (False, True)]
+    table_err = 0
+    for s, ((k1, c1), (k0, c0)) in enumerate(zip(*tables)):
+        table_err = max(table_err,
+                        exact_err(f"phase 18a shard {s} keys", k1, k0),
+                        exact_err(f"phase 18a shard {s} counts", c1, c0))
+    n_rows = sum(c.numel() for _, c in tables[0])
+    del mat, lens, tables
+    say(f"phase 18a run on {MESH_SHARDS} shards of cuda:0: {wall:.1f} s "
+        f"wall (one card, warm, just before: {one_wall:.1f} s), peak "
+        f"device memory {peak / 2**30:.2f} GiB (one card "
+        f"{one_peak / 2**30:.2f}); contigs {stats['n_contigs']} "
+        f"(canonical), total {stats['total_bp']} bp, N50 {stats['n50']}; "
+        f"rounds {rounds} (phase 4 {rounds4}); launches "
+        f"{json.dumps(got)}; stages_s {json.dumps(stages)} (one card "
+        f"{json.dumps(one.snapshot()['stages_s'])}); counters "
+        f"{json.dumps(counters)}; on {len(passes)} pass(es) a shard, "
+        f"kernel vs plain max error: extract {errs['extract']}, sort "
+        f"{errs['sort']}; count_kmers_sharded (min_cov 1, {n_rows} rows) "
+        f"kernel vs plain max error {table_err}")
+    torch.cuda.empty_cache()
+
+    # 18b. kernel path vs plain path on the mesh, 200 kb
+    _g, small = simulate(np.random.default_rng(args.seed + 1), CHECK_BP)
+    slens = np.full(small.shape[0], READ_LEN, np.int32)
+    small_params = Params(k=31, min_kmer_coverage=3)
+    lists, walls = [], []
+    for plain in (False, True):
+        m = metrics.reset()
+        t0 = time.perf_counter()
+        lists.append(parallel.assemble_reads_sharded(
+            small, slens, small_params, mesh=mesh, seed=0, plain=plain))
+        walls.append(time.perf_counter() - t0)
+    if not lists[0] or lists[0] != lists[1]:
+        raise SystemExit(f"phase 18b: kernel path ({len(lists[0])} contigs)"
+                         f" != plain path ({len(lists[1])}) on the mesh")
+    say(f"phase 18b {CHECK_BP // 1000} kb on {MESH_SHARDS} shards: kernel "
+        f"path == plain path, {len(lists[0])} contigs, "
+        f"{m.counts['sharded/extension_rounds']} rounds; {walls[0]:.1f} s vs"
+        f" {walls[1]:.1f} s")
+
+    # 18c. the CLI's own mesh over every card
+    cards = torch.cuda.device_count()
+    if cards < 2:
+        say(f"phase 18c did not run: {cards} card on this machine, and "
+            "-device cuda meshes only over two or more")
+        return
+    mesh_walls(torch, work, fq, want)
+
+
+def exact_err(name, got, want) -> int:
+    """0, the max absolute difference of two integer tensors that must be
+    equal; exits where they differ."""
+    if got.shape != want.shape or not bool((got == want).all()):
+        raise SystemExit(f"{name}: kernel != plain (shapes "
+                         f"{tuple(got.shape)} / {tuple(want.shape)})")
+    return 0
+
+
+def mesh_walls(torch, work, fq, want=None) -> None:
+    """18c: ``run`` on phase 4's FASTQ with ``-device cuda:0`` (one card)
+    and ``-device cuda`` (a mesh over every card) in turns, one, mesh,
+    mesh, one, each wall and stage split printed. Every run's canonical
+    set must equal ``want`` (phase 4's; the first one-card run's when
+    None), and every ``-device cuda`` run must have taken the mesh."""
+    from reflexiv_tpu_torch import cli, metrics
+    from reflexiv_tpu_torch.contigs import canonical_set
+
+    cards = torch.cuda.device_count()
+    out = os.path.join(work, "asm_cards")
+    for i, device in enumerate(("cuda:0", "cuda", "cuda", "cuda:0")):
+        t0 = time.perf_counter()
+        rc = cli.main(["run", "-fastq", fq, "-kmer", "31", "-cover", "3",
+                       "-outfile", out, "-device", device])
+        for d in range(cards):
+            torch.cuda.synchronize(d)
+        wall = time.perf_counter() - t0
+        m = metrics.current()          # cli.main starts its own
+        got = canonical_set(contig_seqs(os.path.join(out, "part-00000")))
+        shutil.rmtree(out)
+        want = got if want is None else want
+        meshed = "sharded/extension_rounds" in m.counts
+        if rc != 0 or got != want or meshed != (device == "cuda"):
+            raise SystemExit(f"phase 18c: run -device {device} over {cards} "
+                             f"cards exited {rc}, canonical set equal "
+                             f"{got == want}, mesh {meshed}")
+        rounds = m.counts.get("sharded/extension_rounds",
+                              m.counts.get("run/extension_rounds"))
+        say(f"phase 18c run {i + 1} -device {device} "
+            f"({cards if meshed else 1} card(s)): {wall:.3f} s wall, "
+            f"canonical set equal; rounds {rounds}; stages_s "
+            f"{json.dumps(m.snapshot()['stages_s'])}")
+
+
+def mesh_walls_only(torch, args) -> int:
+    """``--mesh-walls``: build, phase 4's input, then :func:`mesh_walls`
+    alone (a machine with several cards)."""
+    from reflexiv_tpu_torch.kernels import build
+
+    if torch.cuda.device_count() < 2:
+        print("chip_smoke --mesh-walls needs two or more cards",
+              file=sys.stderr)
+        return 1
+    say("nvidia-smi: " + subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, check=True).stdout.strip()
+        .replace("\n", "; "))
+    build.lib()
+    _genome, reads = simulate(np.random.default_rng(args.seed), GENOME_BP)
+    os.makedirs(os.path.join(REPO, "build"), exist_ok=True)
+    work = tempfile.mkdtemp(prefix="chip_smoke_",
+                            dir=os.path.join(REPO, "build"))
+    try:
+        fq = os.path.join(work, "reads.fq")
+        write_fastq(fq, reads)
+        del reads
+        mesh_walls(torch, work, fq)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    return 0
 
 
 if __name__ == "__main__":

@@ -41,25 +41,43 @@ def initial_records_from_counts(
     return compact(recs, max(next_pow2(n_live), 16)), n_live
 
 
-def extension_fixpoint(p, step, finished, park, params: Params) -> list:
+def _n_true(mask) -> int:
+    """True entries of a mask, or of a list of per-shard masks."""
+    if isinstance(mask, list):
+        return sum(int(m.sum()) for m in mask)
+    return int(mask.sum())
+
+
+def compact_quarter(p, live_n: int):
+    """``p`` with its live rows first and cut to ``max(next_pow2(live_n),
+    16)`` rows when at most a quarter of more than 64 rows is live."""
+    cap = p.capacity
+    if live_n <= cap // 4 and cap > 64:
+        return pk.compact_packed(p, max(next_pow2(live_n), 16))
+    return p
+
+
+def extension_fixpoint(p, step, finished, park, params: Params
+                       ) -> Tuple[list, int]:
     """The loop control of ``assembler._run_extension_loop_packed`` over
-    any pool with ``live`` and ``capacity``: ``step(p, it)`` runs round
-    ``it`` and returns ``(pool, live count)``, ``finished(p)`` is the
-    census, ``park(p, fin, parked)`` moves rows out.
+    any pool with ``live`` (a mask, or a list of per-shard masks) and
+    ``capacity``: ``step(p, it, live_n)`` runs round ``it`` on a pool with
+    ``live_n`` live rows and returns ``(pool, live count)``,
+    ``finished(p)`` is the census (a mask like ``live``),
+    ``park(p, fin, parked)`` moves rows out.
 
     Stop rules: once the live count has been stable for a multiple of 3
     rounds, stop if no live record has a potential partner left (the
     census, ``ReflexivDSMain.java:297-326``); from ``min_iterations`` on,
     stop after 12 stable rounds. Every 8th round parks finished rows when
-    there are more than max(32, capacity / 8); the pool compacts at quarter
-    occupancy (live rows first, in row order). Returns the pool, then the
-    parked batches."""
+    there are more than max(32, capacity / 8). Returns the pool, then the
+    parked batches; and the rounds run."""
     stable_rounds = 0
-    prev_count = int(p.live.sum())
+    n = prev_count = _n_true(p.live)
     parked: list = []
     it = 0
     for it in range(1, params.max_iterations + 1):
-        p, live_n = step(p, it)
+        p, live_n = step(p, it, n)
         n = int(live_n)
         if n == prev_count:
             stable_rounds += 1
@@ -67,29 +85,27 @@ def extension_fixpoint(p, step, finished, park, params: Params) -> list:
             stable_rounds = 0
             prev_count = n
         if stable_rounds >= 3 and stable_rounds % 3 == 0:
-            if int(finished(p).sum()) == n:
+            if _n_true(finished(p)) == n:
                 break
         if it >= params.min_iterations and stable_rounds >= 12:
             break
         if it % 8 == 0:
             fin = finished(p)
-            n_fin = int(fin.sum())
+            n_fin = _n_true(fin)
             if n_fin > max(32, p.capacity // 8):
                 p = park(p, fin, parked)
                 n -= n_fin
                 prev_count = n
-        cap = p.capacity
-        if n <= cap // 4 and cap > 64:
-            p = pk.compact_packed(p, max(next_pow2(n), 16))
-    metrics.current().set("run/extension_rounds", it)
-    return [p] + parked
+    return [p] + parked, it
 
 
 def run_extension_loop(recs: Records, params: Params, *, seed: int = 0
                        ) -> List[pk.PackedRecords]:
     """Iterate packed sort -> join rounds until fixpoint or
-    ``max_iterations`` (:func:`extension_fixpoint`), growing the pool's
-    width before a round whose longest merge may not fit.
+    ``max_iterations`` (:func:`extension_fixpoint`), compacting the pool at
+    quarter occupancy (live rows first, in row order) and growing its width
+    before a round whose longest merge may not fit. Counts
+    ``run/extension_rounds``.
 
     Returns the pool, then the parked batches: the rows in the order the
     JAX package's ``merge_parked_packed`` lays them out, without merging
@@ -99,16 +115,20 @@ def run_extension_loop(recs: Records, params: Params, *, seed: int = 0
     p = pk.from_records(recs)
     need = 2 * int(torch.where(p.live, p.length, 0).max()) - (k - 1)
 
-    def step(p, it):
+    def step(p, it, live_n):
         nonlocal need
+        p = compact_quarter(p, live_n)
         if need > p.base_capacity:
             p = pk.grow_packed(p, next_pow2(need))
         p, live_n, need_t = pk.extension_round_packed(p, seed + it, k=k)
         need = int(need_t)
         return p, live_n
 
-    return extension_fixpoint(p, step, lambda p: pk.finished_mask_packed(p, k),
-                              pk.park_finished_rows, params)
+    groups, it = extension_fixpoint(
+        p, step, lambda p: pk.finished_mask_packed(p, k),
+        pk.park_finished_rows, params)
+    metrics.current().set("run/extension_rounds", it)
+    return groups
 
 
 def assemble_from_counts(

@@ -27,6 +27,7 @@ from typing import List, NamedTuple, Tuple
 import numpy as np
 import torch
 
+from . import metrics
 from .bitpack import MASK32, decode_to_str, encode_ascii, group_sentinel
 from .contigs import revcomp_str
 from .packed import (finished_from_keys, group_order, keys_from_windows,
@@ -196,12 +197,15 @@ def run_extension_loop(p: ChainPool, pieces: Pieces, params, *,
                        seed: int = 0) -> List[ChainPool]:
     """:func:`assembler.run_extension_loop` on the chain pool: the pool,
     then the parked batches."""
-    from .assembler import extension_fixpoint
+    from .assembler import compact_quarter, extension_fixpoint
 
     k = params.k
-    return extension_fixpoint(
-        p, lambda p, it: extension_round(p, pieces, seed + it, k=k),
+    groups, it = extension_fixpoint(
+        p, lambda p, it, n: extension_round(compact_quarter(p, n), pieces,
+                                            seed + it, k=k),
         lambda p: finished_mask(p, k), park_finished_rows, params)
+    metrics.current().set("run/extension_rounds", it)
+    return groups
 
 
 def _jump(ptr: torch.Tensor, val: torch.Tensor):

@@ -222,10 +222,26 @@ def cmd_counter(params: Params, seed: int, device) -> None:
     log.info("wrote %d k-mers to %s", counts.numel(), path)
 
 
-def cmd_run(params: Params, seed: int, device) -> None:
+def _auto_mesh(device):
+    """A mesh over every card when ``device`` is ``cuda`` without an index
+    and more than one card is present (``cli._auto_mesh``), else None."""
+    dev = torch.device(device)
+    if dev.type != "cuda" or dev.index is not None or \
+            torch.cuda.device_count() < 2:
+        return None
+    from .parallel import make_mesh
+
+    return make_mesh([torch.device("cuda", i)
+                      for i in range(torch.cuda.device_count())])
+
+
+def cmd_run(params: Params, seed: int, device, mesh=None) -> None:
     """Single-k assembly (Main -> ReflexivDSMain.assembly). Under
     ``REFLEXIV_INGEST_BUDGET_MB`` the reads are counted from disk in
-    bounded chunks and the read matrix is never built."""
+    bounded chunks and the read matrix is never built. Otherwise the read
+    matrix goes through :func:`parallel.assemble_reads_sharded` on
+    ``mesh``, or on :func:`_auto_mesh`'s when none is given and there is
+    one; ``-kmerc`` and the budget stay on one card."""
     from .assembler import assemble_from_counts, assemble_reads
     from .contigs import assembly_stats, write_assembly_report
     from .io import (ingest_budget_bytes, write_contigs_fasta,
@@ -258,7 +274,15 @@ def cmd_run(params: Params, seed: int, device) -> None:
         mat, lens = _load_read_matrix(params)
         met.lap("run/ingest")
         met.set("run/reads", mat.shape[0])
-        contigs = assemble_reads(mat, lens, params, seed=seed, device=device)
+        mesh = mesh if mesh is not None else _auto_mesh(device)
+        if mesh is not None:
+            from .parallel import assemble_reads_sharded
+
+            contigs = assemble_reads_sharded(mat, lens, params, mesh=mesh,
+                                             seed=seed)
+        else:
+            contigs = assemble_reads(mat, lens, params, seed=seed,
+                                     device=device)
     out = params.output_path
     write_contigs_fasta(os.path.join(out, "part-00000"), contigs,
                         gzip_output=params.gzip_output)
@@ -352,6 +376,7 @@ def main(argv=None) -> int:
     handler = globals()[f"cmd_{args.command}"]
     before = launch_counts()
     if device.type == "cuda":
+        torch.cuda.init()     # the allocator's stats need CUDA started
         torch.cuda.reset_peak_memory_stats(device)
     with m.stage(args.command):
         handler(params, args.seed, device)

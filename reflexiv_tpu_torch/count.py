@@ -110,23 +110,40 @@ def count_kmers(
     if n_windows > radix_sort.MAX_N:
         raise ValueError(f"{n_windows} k-mer windows exceed the 2^31 "
                          "single-pass bound; count_kmers_auto streams them")
-    b = _as_device(bases, torch.uint8, device)
-    lens = _as_device(lengths, torch.int32, device)
-    clips = dict(k=k, front_clip=front_clip, end_clip=end_clip)
-    if num_words(k) == 1 and plain:
-        keys = extract_mod.extract_canonical_keys_torch(b, lens, **clips)
-        skeys = radix_sort.sort_keys_torch(keys)
-    elif num_words(k) == 1:
-        keys = extract_mod.extract_canonical_keys(b, lens, **clips)
-        skeys = radix_sort.sort_keys(keys, bits=2 * k)
-    elif plain:
-        keys = extract_mod.extract_canonical_rows_torch(b, lens, **clips)
-        skeys = radix_sort.sort_rows_torch(keys)
-    else:
-        keys = extract_mod.extract_canonical_rows(b, lens, **clips)
-        skeys = radix_sort.sort_rows(keys, last_bits=2 * word_bases(k)[-1])
+    keys = extract_windows(
+        _as_device(bases, torch.uint8, device),
+        _as_device(lengths, torch.int32, device), k=k,
+        front_clip=front_clip, end_clip=end_clip, plain=plain)
+    skeys = sort_windows(keys, k, plain=plain)
     del keys
     return runlength_band(skeys, extract_mod.sentinel(k), min_cov, max_cov)
+
+
+def extract_windows(b: torch.Tensor, lens: torch.Tensor, *, k: int,
+                    front_clip: int = 0, end_clip: int = 0,
+                    plain: bool = False) -> torch.Tensor:
+    """Canonical key of every read window (the sentinel where invalid):
+    ``(R * (L-k+1),)`` keys or ``(R * (L-k+1), W)`` rows, through the
+    extraction kernel or, with ``plain``, its plain version."""
+    clips = dict(k=k, front_clip=front_clip, end_clip=end_clip)
+    if num_words(k) == 1:
+        fn = extract_mod.extract_canonical_keys_torch if plain \
+            else extract_mod.extract_canonical_keys
+    else:
+        fn = extract_mod.extract_canonical_rows_torch if plain \
+            else extract_mod.extract_canonical_rows
+    return fn(b, lens, **clips)
+
+
+def sort_windows(keys: torch.Tensor, k: int, *,
+                 plain: bool = False) -> torch.Tensor:
+    """:func:`extract_windows`' keys sorted, through the radix sort or,
+    with ``plain``, its plain version."""
+    if num_words(k) == 1:
+        return radix_sort.sort_keys_torch(keys) if plain \
+            else radix_sort.sort_keys(keys, bits=2 * k)
+    return radix_sort.sort_rows_torch(keys) if plain \
+        else radix_sort.sort_rows(keys, last_bits=2 * word_bases(k)[-1])
 
 
 def merge_count_tables(
@@ -171,6 +188,15 @@ def merge_count_tables(
     return keys, out_counts
 
 
+def pass_rows(R: int, L: int, k: int, partitions: int = 0) -> int:
+    """Rows of ``L`` bases one counting pass takes: ``STREAM_WINDOW_LIMIT //
+    W`` windows' worth, and at most ``ceil(R / partitions)`` under
+    ``-partition``."""
+    limit = min(STREAM_WINDOW_LIMIT // num_words(k), radix_sort.MAX_N)
+    rows = max(1, limit // max(L - k + 1, 1))
+    return max(1, min(rows, -(-R // partitions))) if partitions > 1 else rows
+
+
 def count_kmers_auto(bases, lengths, *, k: int, min_cov: int,
                      max_cov: int = 10_000_000, front_clip: int = 0, end_clip: int = 0,
                      partitions: int = 0, device, plain: bool = False):
@@ -181,16 +207,12 @@ def count_kmers_auto(bases, lengths, *, k: int, min_cov: int,
     ``ceil(R / partitions)`` rows at most, whatever the size. The table is
     the same either way."""
     R, L = bases.shape
-    wn = max(L - k + 1, 0)
-    limit = min(STREAM_WINDOW_LIMIT // num_words(k), radix_sort.MAX_N)
     clips = dict(k=k, min_cov=min_cov, max_cov=max_cov,
                  front_clip=front_clip, end_clip=end_clip, device=device,
                  plain=plain)
-    if partitions <= 1 and R * wn <= limit:
+    rows = pass_rows(R, L, k, partitions)
+    if partitions <= 1 and rows >= R:
         return count_kmers(bases, lengths, **clips)
-    rows = max(1, limit // max(wn, 1))
-    if partitions > 1:
-        rows = min(rows, -(-R // partitions))
     return count_kmers_streaming(
         ((bases[lo:lo + rows], lengths[lo:lo + rows])
          for lo in range(0, R, rows)), **clips)
@@ -270,6 +292,14 @@ def _device_table_rows_limit(W: int, device: torch.device,
     return max(1, total // (8 * tables * (8 * W + 4)))
 
 
+def empty_table(k: int, device) -> Tuple[torch.Tensor, torch.Tensor]:
+    """A (keys, counts) table with no rows."""
+    W = num_words(k)
+    return (torch.zeros((0,) if W == 1 else (0, W), dtype=torch.int64,
+                        device=device),
+            torch.zeros(0, dtype=torch.int32, device=device))
+
+
 class _RunningTable:
     """One k's running (keys, counts) table on the device: chunks' tables
     merge in, and past the row limit the table spills to host memory as a
@@ -313,10 +343,7 @@ class _RunningTable:
         elif self.keys is not None:
             keys, counts = self.keys, self.counts
         else:
-            W = num_words(self.k)
-            keys = torch.zeros((0,) if W == 1 else (0, W), dtype=torch.int64,
-                               device=self.device)
-            counts = torch.zeros(0, dtype=torch.int32, device=self.device)
+            keys, counts = empty_table(self.k, self.device)
         self.keys = self.counts = None
         metrics.current().set(f"count.table_rows_k{self.k}", counts.shape[0])
         band = (counts >= min_cov) & (counts <= max_cov)

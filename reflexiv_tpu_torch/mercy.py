@@ -27,7 +27,7 @@ import torch
 
 from . import metrics
 from .bitpack import num_words, searchsorted_rows
-from .count import _as_device, count_kmers_auto
+from .count import _as_device, count_kmers_auto, extract_windows
 from .device import resolve_device, synchronize
 from .kernels import extract as extract_mod
 
@@ -67,13 +67,7 @@ def window_counts(bases: torch.Tensor, lengths: torch.Tensor,
     ``(counts, table positions, valid)`` over the ``R * (L-k+1)`` windows.
     An invalid window's key is poly-T, never canonical, so it counts 0."""
     one = num_words(k) == 1
-    if one:
-        cut = (extract_mod.extract_canonical_keys_torch if plain
-               else extract_mod.extract_canonical_keys)
-    else:
-        cut = (extract_mod.extract_canonical_rows_torch if plain
-               else extract_mod.extract_canonical_rows)
-    keys = cut(bases, lengths, k=k)
+    keys = extract_windows(bases, lengths, k=k, plain=plain)
     sent = torch.tensor(extract_mod.sentinel(k), dtype=torch.int64,
                         device=keys.device)
     valid = keys != sent if one else (keys != sent).any(dim=1)

@@ -25,8 +25,10 @@ compiler and are not here; a bucket never split a group and kept pool
 order inside it, so one call makes the same joins. Under
 ``REFLEXIV_INGEST_BUDGET_MB`` stage 00 counts every k it lacks in one
 streaming pass over the files (:func:`count.count_kmers_from_files_multi`);
-the reads are still loaded for stage 04, as in the JAX package. Not
-ported: the mesh path.
+the reads are still loaded for stage 04, as in the JAX package. ``meta``
+runs on one card: it does not take a mesh yet (the JAX package's mesh
+path, ``dynamic_assembly`` with ``parallel.pdyn_extension_round_sharded``,
+is not ported; ``run`` is, in :mod:`parallel`).
 """
 from __future__ import annotations
 

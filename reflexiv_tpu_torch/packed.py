@@ -253,18 +253,26 @@ def finished_from_keys(head: torch.Tensor, tail: torch.Tensor,
     and tail group keys (:func:`keys_from_windows`): no other live row's
     opposite-end key equals either of theirs."""
     N = live.shape[0]
-    keys = torch.cat([head, tail])
-    is_tail = torch.cat([torch.zeros_like(live), torch.ones_like(live)])
-    live2 = torch.cat([live, live])
-    order = lexsort_rows(keys)
-    skey = keys[order]
-    stail, slive = is_tail[order], live2[order]
-    _is_start, seg = segments(skey)
-    n_heads = segment_sum((slive & ~stail).to(torch.int64), seg, 2 * N)[seg]
-    n_tails = segment_sum((slive & stail).to(torch.int64), seg, 2 * N)[seg]
-    partnered = torch.empty(2 * N, dtype=torch.bool, device=live.device)
-    partnered[order] = torch.where(stail, n_heads > 0, n_tails > 0)
+    partnered = partnered_ends(
+        torch.cat([head, tail]),
+        torch.cat([torch.zeros_like(live), torch.ones_like(live)]),
+        torch.cat([live, live]))
     return live & ~partnered[:N] & ~partnered[N:]
+
+
+def partnered_ends(keys: torch.Tensor, is_tail: torch.Tensor,
+                   live: torch.Tensor) -> torch.Tensor:
+    """Per end message (a row's head or tail group key, ``is_tail``
+    saying which): whether a live message of the other end has its key."""
+    order = lexsort_rows(keys)
+    stail, slive = is_tail[order], live[order]
+    _is_start, seg = segments(keys[order])
+    n = keys.shape[0]
+    n_heads = segment_sum((slive & ~stail).to(torch.int64), seg, n)[seg]
+    n_tails = segment_sum((slive & stail).to(torch.int64), seg, n)[seg]
+    partnered = torch.empty(n, dtype=torch.bool, device=keys.device)
+    partnered[order] = torch.where(stail, n_heads > 0, n_tails > 0)
+    return partnered
 
 
 def finished_mask_packed(p: PackedRecords, k: int) -> torch.Tensor:

@@ -21,9 +21,8 @@ from . import metrics
 from .assembler import initial_records_from_counts, run_extension_loop
 from .bitpack import canonical_rows, num_words, pack_bases, revcomp_bases
 from .contigs import emit_contigs, revcomp_str
-from .count import count_kmers_auto
+from .count import count_kmers_auto, extract_windows
 from .io import contigs_to_segment_matrix, reads_to_matrix
-from .kernels import extract as extract_mod
 from .mercy import lookup_counts
 from .params import Params
 from .records import Records, next_pow2
@@ -41,17 +40,12 @@ def _fragment_keys(fragments: List[str], k: int, device,
     filter (it takes reads of at least k + 2 bases), so its one or two
     windows are packed here."""
     one = num_words(k) == 1
-    if one:
-        extract = extract_mod.extract_canonical_keys_torch if plain \
-            else extract_mod.extract_canonical_keys
-    else:
-        extract = extract_mod.extract_canonical_rows_torch if plain \
-            else extract_mod.extract_canonical_rows
     keys = []
     mat, lens = contigs_to_segment_matrix(fragments, k=k)
     if len(lens):
-        keys.append(extract(torch.from_numpy(mat).to(device),
-                            torch.from_numpy(lens).to(device), k=k))
+        keys.append(extract_windows(torch.from_numpy(mat).to(device),
+                                    torch.from_numpy(lens).to(device), k=k,
+                                    plain=plain))
     short = [f.encode() for f in fragments if k <= len(f) < k + 2]
     if short:
         smat, slens = reads_to_matrix(short)

@@ -141,7 +141,7 @@ def test_port_imports_no_jax():
         "'reflexiv_tpu_torch.')]\n"
         "for n in names: importlib.import_module(n)\n"
         "assert {'reflexiv_tpu_torch.' + m for m in ('preprocess', "
-        "'merger', 'stitch', 'chains')} <= set(names), names\n"
+        "'merger', 'stitch', 'chains', 'parallel')} <= set(names), names\n"
         "import chip_smoke\n"
         "assert not any(m.startswith('reflexiv_tpu.') for m in sys.modules),"
         " 'JAX package imported'\n"
