@@ -136,17 +136,36 @@ script. Phases, one line each:
      ``cli.main(["run", ..., "-device", "cuda:0"])`` and ``"-device",
      "cuda"`` (a mesh over every card) in turns, one, mesh, mesh, one,
      each with phase 4's canonical set and its wall (on one card a line
-     says it did not run).
+     says it did not run);
+  19. ``meta`` on a device mesh (``meta.assemble_dynamic(..., mesh=)``):
+     (a) phase 4's FASTQ through ``cli.cmd_meta`` (``-cover 3``, the
+     default klist) on 4 virtual shards of ``cuda:0`` into a fresh
+     -outfile, so stage 00 counts and fork-filters every k on the mesh and
+     stages 02, 03 and 05 run the mesh loop; its wall, stage laps, rounds,
+     peak device memory (the run's and each stage's own) and contig
+     figures; the canonical total at least 0.95 x the genome; extraction
+     and the sort launched at least 4 times (once a shard) for every k of
+     each word count W; then the shard tables of ``count_kmers_sharded``
+     at every k of the default klist (W = 1-4) through the kernels equal
+     to them through the plain versions; (b) the 200 kb
+     genome's ``meta`` and ``meta -accurate`` on that mesh, kernel path
+     against plain path, identical ``Assembly/`` trees; (c) under
+     ``--mesh-walls`` on a machine with four or more cards, ``meta`` on a
+     mesh of four cards byte-identical to 4 virtual shards of ``cuda:0``
+     (on one card a line says it did not run).
 
 The script is written for one card: on a machine with several, ``run
 -device cuda`` meshes over all of them, so phases 4-17 would take the
-mesh. There ``--mesh-walls`` runs phase 1's build, phase 4's input and
-18c alone.
+mesh. There ``--mesh-walls`` runs phase 1's build, phase 4's input, 18c
+and 19c alone.
 
 Phases 2 and 3 also hold the W-word extraction and row sort (k = 61, 81
 and 95: W = 2, 3 and 4 words) to their plain versions on the main path's
 read matrix. Each extraction and sort line gives its design traffic and
 the rate it reached; each extraction line also its share of the bound.
+
+After each group of phases a ``clock:`` line gives the seconds the script
+has run so far, so every run shows its margin under its time limit.
 
 Tolerance: every comparison is exact (integer keys, equal contig lists,
 equal files). The line before the last is the kernels' JSON record; the
@@ -323,9 +342,11 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--mesh-walls", action="store_true",
-                    help="only phase 18c's walls: run on one card and on a "
-                         "mesh over every card, in turns")
+                    help="only phases 18c and 19c: run on one card and on a "
+                         "mesh over every card, in turns; meta on four "
+                         "cards against four shards of one")
     args = ap.parse_args(argv)
+    t_start = time.perf_counter()
 
     import torch
 
@@ -468,14 +489,27 @@ def main(argv=None) -> int:
         fq = os.path.join(work, "reads.fq")
         write_fastq(fq, reads)
         del reads
+
+        def clock(phases):
+            say(f"clock: {time.perf_counter() - t_start:.1f} s of the "
+                f"script after phases {phases}")
+
+        clock("1-3")
         rounds4 = phases_4_to_8(torch, args, dev, work, fq, genome,
                                 launches, rows, bounds, library)
+        clock("4-10")
         phases_11_12(torch, args, dev, work, genome, launches)
+        clock("11-12")
         phases_13_16(torch, args, dev, work, fq, genome, launches)
+        clock("13-16")
         phase_17(torch, args, work, launches, rows)
         phase_17b(torch, dev, work, fq, launches)
         checks_200kb_streaming(torch, args, dev, work)
+        clock("17")
         phase_18(torch, args, work, fq, rounds4, launches, rows)
+        clock("18")
+        phase_19(torch, args, work, fq, genome, launches)
+        clock("19")
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
@@ -771,7 +805,6 @@ def meta_phase(torch, cli, fq, rout, genome):
     rc = cli.main(["meta", "-fastq", fq, "-cover", "3", "-outfile", rout,
                    "-device", "cuda"])
     wall = time.perf_counter() - t0
-    peak = torch.cuda.max_memory_allocated() / 2**30
     got = path_launches()
     if rc != 0:
         raise SystemExit(f"meta exited {rc}")
@@ -787,6 +820,9 @@ def meta_phase(torch, cli, fq, rout, genome):
     contigs = contig_seqs(os.path.join(asm, "part-00000"))
     with open(os.path.join(rout, "metrics.json")) as fh:
         met = json.load(fh)
+    # meta restarts the peak counters at every stage: the run's peak is
+    # the highest stage's, in metrics.json
+    peak = met["counters"]["device/peak_bytes"] / 2**30
     stats = assembly_stats(contigs)
     share = stats["total_bp"] / GENOME_BP
     gstr = ACGT[genome].tobytes().decode()
@@ -935,7 +971,6 @@ def phases_11_12(torch, args, dev, work, genome, launches) -> None:
                    "-patch", "-scaffold", "-outfile", out, "-device",
                    "cuda"])
     wall = time.perf_counter() - t0
-    peak = torch.cuda.max_memory_allocated() / 2**30
     got = path_launches()
     if rc != 0:
         raise SystemExit(f"meta -accurate -patch -scaffold exited {rc}")
@@ -956,6 +991,7 @@ def phases_11_12(torch, args, dev, work, genome, launches) -> None:
         n_links = len(fh.read().splitlines()) - 1
     with open(os.path.join(out, "metrics.json")) as fh:
         met = json.load(fh)
+    peak = met["counters"]["device/peak_bytes"] / 2**30
     contigs = contig_seqs(os.path.join(asm, "part-00000"))
     st = assembly_stats(contigs)
     share = st["total_bp"] / GENOME_BP
@@ -1174,8 +1210,8 @@ def write_fasta(path: str, seqs) -> None:
 
 def run_cli(torch, cli, argv, label):
     """``cli.main(argv)`` with the launch counts and the device memory
-    peak set to 0 just before; returns (wall, peak GiB, launches,
-    metrics.json)."""
+    peak set to 0 just before; returns (wall, peak GiB as metrics.json's
+    ``device/peak_bytes`` has it, launches, metrics.json)."""
     from reflexiv_tpu_torch.kernels import extract, radix_sort
 
     zero_launches(extract, radix_sort)
@@ -1183,14 +1219,13 @@ def run_cli(torch, cli, argv, label):
     t0 = time.perf_counter()
     rc = cli.main(argv + ["-device", "cuda"])
     wall = time.perf_counter() - t0
-    peak = torch.cuda.max_memory_allocated() / 2**30
     got = path_launches()
     if rc != 0:
         raise SystemExit(f"{label} exited {rc}")
     out = argv[argv.index("-outfile") + 1]
     with open(os.path.join(out, "metrics.json")) as fh:
         met = json.load(fh)
-    return wall, peak, got, met
+    return wall, met["counters"]["device/peak_bytes"] / 2**30, got, met
 
 
 def genome_share(contigs, genome):
@@ -2047,9 +2082,192 @@ def mesh_walls(torch, work, fq, want=None) -> None:
             f"{json.dumps(m.snapshot()['stages_s'])}")
 
 
+# ---------------------------------------------------------------------------
+# phase 19: meta on a device mesh
+# ---------------------------------------------------------------------------
+
+def mesh_meta(torch, dev, mesh, params, out):
+    """One ``cli.cmd_meta`` on ``mesh`` into a fresh ``out``, the launch
+    counts set to 0 just before it: (wall, peak bytes on any card of the
+    mesh, launches, metrics, contigs). ``meta`` restarts the peak
+    counters at each stage (``meta/<stage>.peak_bytes``), so the run's
+    peak is the highest stage's or, if higher, what came after the
+    last."""
+    from reflexiv_tpu_torch import cli, metrics
+    from reflexiv_tpu_torch.kernels import extract, radix_sort
+
+    shutil.rmtree(out, ignore_errors=True)
+    m = metrics.reset()
+    cards = sorted(set(mesh.devices) | {dev}, key=str)
+    torch.cuda.init()     # the allocator's stats need CUDA started
+    for d in cards:
+        torch.cuda.reset_peak_memory_stats(d)
+    zero_launches(extract, radix_sort)
+    t0 = time.perf_counter()
+    cli.cmd_meta(params, 0, dev, mesh=mesh)
+    for d in cards:
+        torch.cuda.synchronize(d)
+    wall = time.perf_counter() - t0
+    got = {name: n for name, n in path_launches().items() if n}
+    contigs = contig_seqs(os.path.join(out, "Assembly", "part-00000"))
+    peak = max([m.counts.get("meta/peak_bytes", 0)]
+               + [torch.cuda.max_memory_allocated(d) for d in cards])
+    return wall, peak, got, m, contigs
+
+
+def stage_peaks(m) -> str:
+    """``meta``'s own peak of each stage, GiB, as one JSON object."""
+    return json.dumps({
+        name.split("/")[1].split(".")[0]: round(n / 2**30, 2)
+        for name, n in m.counts.items()
+        if name.startswith("meta/0") and name.endswith(".peak_bytes")})
+
+
+def phase_19(torch, args, work, fq, genome, launches) -> None:
+    """19a: phase 4's FASTQ through ``cli.cmd_meta`` on
+    :data:`MESH_SHARDS` virtual shards of ``cuda:0`` (stage 00 counts on
+    the mesh: a fresh -outfile, no ``Count_<k>_reduced``); its canonical
+    total must reach 0.95 x the genome and every shard must launch
+    extraction and the sort at every k. Then the shard tables at every k
+    of the klist (W = 1-4, the shapes stage 00 gives the kernels),
+    kernels against plain versions. 19b: ``meta`` and ``meta
+    -accurate`` at 200 kb on that mesh, kernel path against plain path,
+    identical ``Assembly/`` trees."""
+    from reflexiv_tpu_torch import cli, meta, metrics, parallel
+    from reflexiv_tpu_torch.bitpack import num_words
+    from reflexiv_tpu_torch.contigs import assembly_stats, canonical_set
+    from reflexiv_tpu_torch.params import DEFAULT_KLIST, Params
+
+    dev = torch.device("cuda", 0)
+    mesh = parallel.make_mesh([dev] * MESH_SHARDS)
+    out = os.path.join(work, "meta_mesh")
+    params = Params(min_kmer_coverage=3, input_fastq=fq, output_path=out)
+    wall, peak, got, m, contigs = mesh_meta(torch, dev, mesh, params, out)
+    for name, n in got.items():
+        launches[name] = launches.get(name, 0) + n
+    shutil.rmtree(out)
+    stats = assembly_stats(contigs)
+    share = stats["total_bp"] / GENOME_BP
+    gstr = ACGT[genome].tobytes().decode()
+    rc_str = ACGT[3 - genome[::-1]].tobytes().decode()
+    exact = sum(len(c) for c in canonical_set(contigs)
+                if c in gstr or c in rc_str)
+    # at least once a shard for every k of each word count (stage 04
+    # adds its own one-word launches)
+    want = {}
+    for k in DEFAULT_KLIST:
+        W = num_words(k)
+        for kind in ("extract", "sort"):
+            name = kind if W == 1 else f"{kind}_rows{W}"
+            want[name] = want.get(name, 0) + MESH_SHARDS
+    short = {n: (got.get(n, 0), w) for n, w in want.items()
+             if got.get(n, 0) < w}
+    say(f"phase 19a meta on {MESH_SHARDS} shards of cuda:0: {wall:.1f} s "
+        f"wall, peak device memory {peak / 2**30:.2f} GiB (each stage's "
+        f"own, GiB: {stage_peaks(m)}); "
+        f"{m.counts.get('meta/extension_rounds')} extension rounds; "
+        f"contigs {stats['n_contigs']} (canonical), total "
+        f"{stats['total_bp']} bp = {share:.4f} x genome, longest "
+        f"{stats['longest']}, N50 {stats['n50']}, exact-match bp {exact}; "
+        f"launches {json.dumps(got)}; stages_s "
+        f"{json.dumps(m.snapshot()['stages_s'])}"
+        f"; counters {json.dumps(m.counts)}")
+    if share < 0.95:
+        raise SystemExit(f"phase 19a: contig total {stats['total_bp']} bp "
+                         f"is {share:.4f} x the genome, under 0.95")
+    if short:
+        raise SystemExit(f"phase 19a: a shard skipped a kernel at some k "
+                         f"(launches, wanted): {short}")
+
+    # every k's shard tables through the kernels against the plain
+    # versions, at the per-shard shapes stage 00 gives them
+    t0 = time.perf_counter()
+    mat, lens = cli._load_read_matrix(params)
+    table_rows, errs = {}, {}
+    for k in DEFAULT_KLIST:
+        tables = [parallel.count_kmers_sharded(mat, lens, k=k, min_cov=1,
+                                               mesh=mesh, plain=plain)
+                  for plain in (False, True)]
+        errs[k] = max(
+            max(exact_err(f"phase 19a k={k} shard {s} keys", k1, k0),
+                exact_err(f"phase 19a k={k} shard {s} counts", c1, c0))
+            for s, ((k1, c1), (k0, c0)) in enumerate(zip(*tables)))
+        table_rows[k] = sum(c.numel() for _, c in tables[0])
+        del tables
+    del mat, lens
+    torch.cuda.empty_cache()
+    say(f"phase 19a shard tables (min_cov 1) kernel == plain at every k "
+        f"on {MESH_SHARDS} shards, rows {json.dumps(table_rows)}, max abs "
+        f"err {json.dumps(errs)}; {time.perf_counter() - t0:.1f} s")
+
+    # 19b. kernel path vs plain path on the mesh, 200 kb
+    _g, small = simulate(np.random.default_rng(args.seed + 1), CHECK_BP)
+    sfq = os.path.join(work, "mesh_small.fq")
+    write_fastq(sfq, small)
+    for flags in ((), ("accurate",)):
+        trees, walls = [], []
+        for plain in (False, True):
+            sout = os.path.join(work, f"mesh_meta_{int(plain)}")
+            shutil.rmtree(sout, ignore_errors=True)
+            sp = Params(min_kmer_coverage=3, input_fastq=sfq,
+                        output_path=sout, sensitive=bool(flags))
+            metrics.reset()
+            t0 = time.perf_counter()
+            meta.dynamic_assembly(sp, seed=0, device=dev, plain=plain,
+                                  mesh=mesh)
+            walls.append(time.perf_counter() - t0)
+            trees.append(os.path.join(sout, "Assembly"))
+        label = "phase 19b meta" + "".join(f" -{f}" for f in flags)
+        same_trees(label, *trees)
+        n = len(contig_seqs(os.path.join(trees[0], "part-00000")))
+        say(f"{label} {CHECK_BP // 1000} kb on {MESH_SHARDS} shards: kernel "
+            f"path == plain path (Assembly/ byte-identical), {n} contigs; "
+            f"{walls[0]:.1f} s vs {walls[1]:.1f} s")
+        for t in trees:
+            shutil.rmtree(os.path.dirname(t))
+    say(f"phase 19c did not run: it runs under --mesh-walls on a machine "
+        f"with {MESH_SHARDS} or more cards (this one has "
+        f"{torch.cuda.device_count()})")
+
+
+def mesh_meta_cards(torch, work, fq) -> None:
+    """19c: ``meta`` on phase 4's FASTQ on a mesh of the first
+    :data:`MESH_SHARDS` cards (the CLI's own ``-device cuda`` mesh where
+    there are exactly that many), byte-identical to the same on that many
+    virtual shards of ``cuda:0``."""
+    from reflexiv_tpu_torch import cli, parallel
+    from reflexiv_tpu_torch.params import Params
+
+    cards = torch.cuda.device_count()
+    meshes = [parallel.make_mesh([torch.device("cuda", 0)] * MESH_SHARDS),
+              cli._auto_mesh("cuda") if cards == MESH_SHARDS else
+              parallel.make_mesh([torch.device("cuda", i)
+                                  for i in range(MESH_SHARDS)])]
+    files = []
+    labels = (f"{MESH_SHARDS} shards of cuda:0", f"{MESH_SHARDS} cards")
+    for i, mesh in enumerate(meshes):
+        out = os.path.join(work, f"meta_cards_{i}")
+        params = Params(min_kmer_coverage=3, input_fastq=fq, output_path=out)
+        wall, peak, _got, m, contigs = mesh_meta(
+            torch, torch.device("cuda", 0), mesh, params, out)
+        with open(os.path.join(out, "Assembly", "part-00000"), "rb") as fh:
+            files.append(fh.read())
+        shutil.rmtree(out)
+        say(f"phase 19c meta on {labels[i]}: {wall:.1f} s wall, peak "
+            f"{peak / 2**30:.2f} GiB (stages {stage_peaks(m)}), "
+            f"{len(contigs)} contigs, "
+            f"{m.counts.get('meta/extension_rounds')} rounds; stages_s "
+            f"{json.dumps(m.snapshot()['stages_s'])}")
+    if files[0] != files[1]:
+        raise SystemExit("phase 19c: meta on four cards differs from four "
+                         "shards of one")
+    say("phase 19c: Assembly/part-00000 byte-identical")
+
+
 def mesh_walls_only(torch, args) -> int:
     """``--mesh-walls``: build, phase 4's input, then :func:`mesh_walls`
-    alone (a machine with several cards)."""
+    and, with four or more cards, :func:`mesh_meta_cards` alone (a
+    machine with several cards)."""
     from reflexiv_tpu_torch.kernels import build
 
     if torch.cuda.device_count() < 2:
@@ -2071,6 +2289,8 @@ def mesh_walls_only(torch, args) -> int:
         write_fastq(fq, reads)
         del reads
         mesh_walls(torch, work, fq)
+        if torch.cuda.device_count() >= MESH_SHARDS:
+            mesh_meta_cards(torch, work, fq)
     finally:
         shutil.rmtree(work, ignore_errors=True)
     return 0

@@ -9,7 +9,10 @@ The formats are the JAX package's, so a stage written by either package
 resumes in the other:
   * ``packed_v2``: a pool as ``block_*.npz`` files of at most 2^20 live
     rows each (2-bit packed limbs, length, subk, left, right, live) plus
-    ``meta.json``;
+    ``meta.json``; a :class:`packed_dyn.FlatPool` is written in blocks of
+    consecutive rows each as wide as its own longest row (at most
+    ``BLOCK_LIMBS`` limbs a block, so a megabase row gets a block of its
+    own), which the JAX reader takes as it takes its own;
   * ``groups_v1``: a width-class group list, one ``g_*.npz`` per group;
   * per-k sets (``set.npz``), in-loop state (``it_<n>/``: pool groups or
     blocks, parked groups, ``state.json``) and contigs with their attrs
@@ -25,7 +28,9 @@ import shutil
 from typing import Optional, Tuple
 
 import numpy as np
+import torch
 
+from . import packed_dyn as pd
 from .dyn_pool import (DynRecords, PackedDynRecords, limbs_for,
                        pack_seq_matrix_np, unpack_seq_matrix_np)
 from .io import has_success_marker, write_success_marker
@@ -38,6 +43,7 @@ META_STAGES: Tuple[str, ...] = (
     "00sorted", "01reduced", "02extended", "03fixed", "04contigs",
 )
 BLOCK_ROWS = 1 << 20
+BLOCK_LIMBS = 1 << 24   # rows x width of one block of a flat pool
 
 
 def stage_dir(workdir: str, stage: str) -> str:
@@ -122,10 +128,70 @@ def _read_pool_blocks(d: str):
     return seq, length, subk, left, right, live, meta["base_capacity"]
 
 
+def _flat_blocks(pool: "pd.FlatPool"):
+    """``(seq, length, subk, left, right)`` numpy blocks of consecutive
+    rows of a flat pool (on the host), each as wide as its longest row and
+    within ``BLOCK_ROWS`` rows and ``BLOCK_LIMBS`` limbs."""
+    pool = pool.to("cpu")
+    nl = ((pool.length.to(torch.int64) + 15) // 16).numpy()
+
+    def cut(lo, hi):
+        w = max(int(nl[lo:hi].max()), 1)
+        if hi - lo > 1 and (hi - lo > BLOCK_ROWS or
+                            (hi - lo) * w > BLOCK_LIMBS):
+            mid = (lo + hi) // 2
+            yield from cut(lo, mid)
+            yield from cut(mid, hi)
+            return
+        part = pd.take(pool, torch.arange(lo, hi))
+        yield (pd.to_dense(part, w).numpy().astype(np.uint32),
+               *(t.numpy() for t in part[1:]))
+
+    for lo in range(0, pool.n, BLOCK_ROWS):
+        yield from cut(lo, min(lo + BLOCK_ROWS, pool.n))
+
+
+def _write_flat_blocks(d: str, pool: "pd.FlatPool") -> int:
+    os.makedirs(d, exist_ok=True)
+    limbs = 1
+    for bi, (seq, length, subk, left, right) in enumerate(_flat_blocks(pool)):
+        np.savez(os.path.join(d, f"block_{bi:05d}.npz"), seq=seq,
+                 length=length, subk=subk, left=left, right=right,
+                 live=np.ones(len(length), bool))
+        limbs = max(limbs, seq.shape[1])
+    with open(os.path.join(d, "meta.json"), "w") as fh:
+        json.dump({"format": "packed_v2", "rows": pool.n,
+                   "base_capacity": 16 * limbs, "limbs": limbs}, fh)
+    return pool.n
+
+
+def _read_flat(d: str) -> "pd.FlatPool":
+    """A ``packed_v2`` or ``groups_v1`` pool directory as a host flat pool,
+    block by block (the widest row's dense matrix never exists)."""
+    with open(os.path.join(d, "meta.json")) as fh:
+        if json.load(fh).get("format") == "groups_v1":
+            return pd.from_groups(_load_groups(d, "g"))
+    parts = []
+    for path in sorted(glob.glob(os.path.join(d, "block_*.npz"))):
+        z = np.load(path)
+        live = z["live"].astype(bool)
+        parts.append(pd.from_dense(z["seq"][live], *(
+            z[c][live] for c in ("length", "subk", "left", "right"))))
+    return pd.cat(parts, "cpu")
+
+
 def save_records(workdir: str, stage: str, recs) -> None:
     """Checkpoint a pool (byte :class:`DynRecords`, packed
-    :class:`PackedDynRecords` or a width-class group list)."""
+    :class:`PackedDynRecords`, a :class:`packed_dyn.FlatPool` or a
+    width-class group list)."""
     d = stage_dir(workdir, stage)
+    if isinstance(recs, pd.FlatPool):
+        if os.path.exists(d):
+            shutil.rmtree(d)
+        n = _write_flat_blocks(d, recs)
+        write_success_marker(d)
+        log.info("checkpoint: wrote stage %s (%d live rows)", stage, n)
+        return
     if isinstance(recs, list):
         if os.path.exists(d):
             shutil.rmtree(d)
@@ -142,10 +208,13 @@ def save_records(workdir: str, stage: str, recs) -> None:
     log.info("checkpoint: wrote stage %s (%d live rows)", stage, n)
 
 
-def load_records(workdir: str, stage: str):
+def load_records(workdir: str, stage: str, flat: bool = False):
     """A stage snapshot as a host byte :class:`DynRecords`, or the group
-    list a ``groups_v1`` stage holds."""
+    list a ``groups_v1`` stage holds; with ``flat`` as a host
+    :class:`packed_dyn.FlatPool` of its live rows in order."""
     d = stage_dir(workdir, stage)
+    if flat:
+        return _read_flat(d)
     with open(os.path.join(d, "meta.json")) as fh:
         if json.load(fh).get("format") == "groups_v1":
             return _load_groups(d, "g")
@@ -189,9 +258,15 @@ def save_loop_state(ckpt_dir: str, pool, parked: list, state: dict) -> None:
         shutil.rmtree(d)
     if isinstance(pool, list):
         _save_groups(os.path.join(d, "live"), pool, "g")
+    elif isinstance(pool, pd.FlatPool):
+        _write_flat_blocks(os.path.join(d, "pool"), pool)
     else:
         _write_pool_blocks(os.path.join(d, "pool"), pool)
-    _save_groups(os.path.join(d, "parked"), parked, "p")
+    # a flat batch goes as consecutive blocks: the reader appends them in
+    # order, so the parked rows come back as they were
+    _save_groups(os.path.join(d, "parked"), [
+        blk for b in parked for blk in (
+            _flat_blocks(b) if isinstance(b, pd.FlatPool) else [b])], "p")
     with open(os.path.join(d, "state.json"), "w") as fh:
         json.dump(state, fh)
     write_success_marker(d)
@@ -201,21 +276,28 @@ def save_loop_state(ckpt_dir: str, pool, parked: list, state: dict) -> None:
     log.info("checkpoint: extension loop state at round %d -> %s", it, d)
 
 
-def load_loop_state(ckpt_dir: str):
+def load_loop_state(ckpt_dir: str, flat: bool = False):
     """Newest complete in-loop checkpoint as (pool, parked, state), or
-    None; the pool is a group list or a host :class:`PackedDynRecords`."""
+    None; the pool is a group list or a host :class:`PackedDynRecords`,
+    or with ``flat`` a host :class:`packed_dyn.FlatPool`, and then every
+    parked batch is one too."""
     if not os.path.isdir(ckpt_dir):
         return None
     for d in sorted(glob.glob(os.path.join(ckpt_dir, "it_*")), reverse=True):
         if not has_success_marker(d):
             continue
         ldir = os.path.join(d, "live")
-        if os.path.isdir(ldir):
+        if flat:
+            pool = pd.from_groups(_load_groups(ldir, "g")) \
+                if os.path.isdir(ldir) else _read_flat(os.path.join(d, "pool"))
+        elif os.path.isdir(ldir):
             pool = _load_groups(ldir, "g")
         else:
             pool = PackedDynRecords(
                 *_read_pool_blocks(os.path.join(d, "pool"))[:6])
         parked = _load_groups(os.path.join(d, "parked"), "p")
+        if flat:
+            parked = [pd.from_dense(*g) for g in parked]
         with open(os.path.join(d, "state.json")) as fh:
             state = json.load(fh)
         return pool, parked, state

@@ -297,13 +297,16 @@ def cmd_run(params: Params, seed: int, device, mesh=None) -> None:
     )
 
 
-def cmd_meta(params: Params, seed: int, device) -> None:
+def cmd_meta(params: Params, seed: int, device, mesh=None) -> None:
     """Dynamic multi-k assembly (MainMeta -> the staged dynamic pipe);
     after a ``reduce`` into the same -outfile it starts from its
-    ``Count_<k>_reduced`` tables."""
+    ``Count_<k>_reduced`` tables. On ``mesh``, or on :func:`_auto_mesh`'s
+    when none is given and there is one, it runs the mesh path
+    (:mod:`meta`)."""
     from .meta import dynamic_assembly
 
-    dynamic_assembly(params, seed=seed, device=device)
+    mesh = mesh if mesh is not None else _auto_mesh(device)
+    dynamic_assembly(params, seed=seed, device=device, mesh=mesh)
 
 
 def cmd_reduce(params: Params, seed: int, device) -> None:
@@ -384,7 +387,10 @@ def main(argv=None) -> int:
     for name, n in launch_counts().items():
         m.set(f"launches/{name}", n - before.get(name, 0))
     if device.type == "cuda":
-        m.set("device/peak_bytes", torch.cuda.max_memory_allocated(device))
+        # meta restarts the peak counters at every stage and keeps the
+        # highest of its stages in meta/peak_bytes
+        m.set("device/peak_bytes", max(torch.cuda.max_memory_allocated(device),
+                                       m.counts.get("meta/peak_bytes", 0)))
     if params.output_path:
         path = m.write(params.output_path)
         log.info("metrics written to %s", path)

@@ -66,13 +66,21 @@ def window_counts(bases: torch.Tensor, lengths: torch.Tensor,
     plain version with ``plain``), looked up in the table: returns
     ``(counts, table positions, valid)`` over the ``R * (L-k+1)`` windows.
     An invalid window's key is poly-T, never canonical, so it counts 0."""
-    one = num_words(k) == 1
+    keys, valid = window_keys(bases, lengths, k=k, plain=plain)
+    counts, pos = lookup_counts(table_keys, table_counts, keys)
+    return counts, pos, valid
+
+
+def window_keys(bases: torch.Tensor, lengths: torch.Tensor, *, k: int,
+                plain: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Every read window's canonical key, cut by the extraction kernel (its
+    plain version with ``plain``), and whether the window is valid (its
+    key is not the poly-T sentinel)."""
     keys = extract_windows(bases, lengths, k=k, plain=plain)
     sent = torch.tensor(extract_mod.sentinel(k), dtype=torch.int64,
                         device=keys.device)
-    valid = keys != sent if one else (keys != sent).any(dim=1)
-    counts, pos = lookup_counts(table_keys, table_counts, keys)
-    return counts, pos, valid
+    valid = keys != sent if num_words(k) == 1 else (keys != sent).any(dim=1)
+    return keys, valid
 
 
 def _mercy_mask(bases, lengths, table_keys, table_counts, *, k: int,
@@ -82,7 +90,16 @@ def _mercy_mask(bases, lengths, table_keys, table_counts, *, k: int,
     right of it in its read (``mercy._mercy_mask``)."""
     counts, pos, valid = window_counts(bases, lengths, table_keys,
                                        table_counts, k=k, plain=plain)
-    R = bases.shape[0]
+    return pos, flank_rule(counts, valid, bases.shape[0], min_cov)
+
+
+def flank_rule(counts: torch.Tensor, valid: torch.Tensor, R: int,
+               min_cov: int) -> torch.Tensor:
+    """Mercy windows among the ``R`` reads' windows (row-major), from each
+    window's table count: weak, with a solid window strictly left and
+    strictly right of it in its read, by a ``cumsum`` along the row."""
+    if R == 0:
+        return valid.clone()
     solid = ((counts >= min_cov) & valid).view(R, -1)
     weak = ((counts >= 1) & (counts < min_cov) & valid).view(R, -1)
     s32 = solid.to(torch.int32)
@@ -90,7 +107,7 @@ def _mercy_mask(bases, lengths, table_keys, table_counts, *, k: int,
     solid_left = csum > 0
     solid_right = (csum[:, -1:] - csum + s32) > 0
     mercy = weak & solid_left & solid_right & ~solid
-    return pos, mercy.reshape(-1)
+    return mercy.reshape(-1)
 
 
 def mercy_kmer_table(bases, lengths, *, k: int, min_cov: int,

@@ -18,17 +18,26 @@ then, with ``-patch``/``-scaffold``, read-pair patching (:mod:`.patching`),
 whose link table goes to ``<out>/04Patching/links.tsv``. ``-accurate``
 counts each k of stage 00 through :func:`mercy.mercy_kmer_table`.
 
-The loop is the JAX package's summary-indexed form
+On one card the loop is the JAX package's summary-indexed form
 (``REFLEXIV_INDEXED_ALWAYS=1``): one device call per round on all rows.
 Its hash buckets, slab tiers and prefetch thread existed for the TPU
 compiler and are not here; a bucket never split a group and kept pool
 order inside it, so one call makes the same joins. Under
 ``REFLEXIV_INGEST_BUDGET_MB`` stage 00 counts every k it lacks in one
 streaming pass over the files (:func:`count.count_kmers_from_files_multi`);
-the reads are still loaded for stage 04, as in the JAX package. ``meta``
-runs on one card: it does not take a mesh yet (the JAX package's mesh
-path, ``dynamic_assembly`` with ``parallel.pdyn_extension_round_sharded``,
-is not ported; ``run`` is, in :mod:`parallel`).
+the reads are still loaded for stage 04, as in the JAX package.
+
+``meta`` also takes a mesh (:func:`parallel.make_mesh`; the CLI meshes
+over every card for ``-device cuda`` when there are several), and then
+runs the JAX package's mesh path, a different algorithm: stage 00 counts
+and fork-filters each k sharded (:func:`parallel.sort_k_records_sharded`,
+:func:`parallel.mercy_kmer_table_sharded` under ``-accurate``; before the
+ingest budget, which a mesh ignores), and stages 02, 03 and 05 run
+:func:`run_dyn_extension_mesh`: dense rounds on per-shard
+:class:`packed_dyn.FlatPool` pools, rows hash-routed every round, with
+that loop's own stop, census, parking and overflow-retry rules, and the
+dense forms of fixing. Reassembly, end extension, dedup and patching stay
+on one card, as in the JAX package.
 """
 from __future__ import annotations
 
@@ -45,6 +54,7 @@ import torch
 from . import checkpoint as ckpt
 from . import metrics
 from . import packed_dyn as pd
+from . import parallel
 from .bitpack import (MASK32, decode_to_str, encode_ascii, pack_bases,
                       revcomp_bases)
 from .count import count_kmers_auto, count_kmers_from_files_multi
@@ -60,6 +70,7 @@ from .dynamic import (_count_signature, read_sorted_set, reduce_k_pair,
 from .graph import build_initial_records
 from .io import has_success_marker, ingest_budget_bytes
 from .mercy import mercy_kmer_table
+from .packed import pack_seq_matrix, unpack_seq_matrix
 from .params import Params
 from .records import REPEAT_KILLED
 
@@ -271,6 +282,130 @@ def run_dyn_extension(recs, params: Params, *, kmin: int, seed: int = 0,
 
 
 # ---------------------------------------------------------------------------
+# the extension loop on a mesh
+# ---------------------------------------------------------------------------
+
+def as_flat(pool) -> pd.FlatPool:
+    """A stage pool (flat, byte or packed host pool, or width-class
+    groups) as a host :class:`packed_dyn.FlatPool` of its live rows, in
+    order."""
+    if isinstance(pool, pd.FlatPool):
+        return pool.to("cpu")
+    if isinstance(pool, list):
+        return pd.from_groups(pool)
+    p = pool if np.dtype(pool.seq.dtype) == np.uint32 \
+        else from_dyn_host(pool)
+    idx = np.nonzero(np.asarray(p.live))[0]
+    return pd.from_dense(np.asarray(p.seq)[idx],
+                         *(np.asarray(a)[idx] for a in p[1:5]))
+
+
+def _mesh_capacity(live: int, n_dev: int) -> int:
+    """The JAX mesh loop's pool rows for ``live`` rows: twice the next
+    power of two, at least 64 a shard, a multiple of the shard count."""
+    cap = max(next_pow2(max(live, 1)) * 2, 64 * n_dev)
+    return -(-cap // n_dev) * n_dev
+
+
+def run_dyn_extension_mesh(pool, params: Params, *, kmin: int,
+                           mesh: "parallel.Mesh", seed: int = 0,
+                           unique_only: bool = False,
+                           max_rounds: Optional[int] = None,
+                           ckpt_dir: Optional[str] = None) -> pd.FlatPool:
+    """Mixed-k rounds to a fixpoint on a mesh (``dynamic
+    .run_dyn_extension``'s mesh branch with ``return_packed``). The pool
+    is laid out as the JAX package's ``_pad_pdyn`` lays it, on ``cap``
+    rows; every round is :func:`parallel.pdyn_extension_round_sharded`.
+    A round the JAX loop would overflow is dropped and retried on a pool
+    of twice the rows, the round not advancing (log line "dyn round N
+    overflowed"). The census (the exact one, mesh-wide) runs when the
+    live count has been stable for a multiple of 3 rounds and stops the
+    loop when every row is finished; the loop also stops after
+    ``min_iterations`` once stable for 12 rounds, or at ``max_rounds``.
+    Every 8th round it parks the finished rows as one batch when there
+    are more than ``max(32, cap / 8)`` and re-lays the rest. With
+    ``ckpt_dir`` the loop state, ``cap`` included, is saved every
+    ``REFLEXIV_CKPT_EVERY_S`` seconds (default 300) in the JAX package's
+    format, and a later call resumes from it. Returns a host pool: the
+    live rows in shard order, then the parked batches."""
+    max_rounds = max_rounds or params.max_iterations
+    ckpt_every = float(os.environ.get("REFLEXIV_CKPT_EVERY_S", "300"))
+    last_ckpt = time.time()
+    met = metrics.current()
+    n_dev = mesh.size
+
+    state0 = ckpt.load_loop_state(ckpt_dir, flat=True) if ckpt_dir else None
+    if state0 is not None:
+        pool, parked, st = state0
+        max_sub, it = st["max_sub"], st["it"] + 1
+        stable, prev, need = st["stable"], st["prev"], st["need"]
+        cap = st.get("cap") or _mesh_capacity(prev, n_dev)
+        log.info("extension loop: resuming at round %d (%d live rows)",
+                 it, prev)
+    else:
+        pool = as_flat(pool)
+        parked, it, stable = [], 1, 0
+        max_sub = int(pool.subk.max()) if pool.n else 1
+        prev = pool.n
+        need = 2 * int(pool.length.max()) if pool.n else 0
+        cap = _mesh_capacity(prev, n_dev)
+    cap = -(-cap // n_dev) * n_dev
+    shards = parallel.pad_pdyn([pool], cap, mesh)
+    del pool
+
+    def census():
+        t0 = time.perf_counter()
+        fin = parallel.finished_mask_pdyn_sharded(shards, max_sub, mesh)
+        met.add_time("meta/round_census", time.perf_counter() - t0)
+        return fin, sum(int(f.sum()) for f in fin)
+
+    while it <= max_rounds:
+        t0 = time.perf_counter()
+        nxt = parallel.pdyn_extension_round_sharded(
+            shards, seed + it, kmin=kmin, max_sub=max_sub, mesh=mesh,
+            cap=cap, unique_only=unique_only)
+        met.add_time("meta/round_join", time.perf_counter() - t0)
+        if nxt is None:
+            cap *= 2
+            log.info("dyn round %d overflowed; repadding to %d", it, cap)
+            met.add("meta/round_retries")
+            shards = parallel.pad_pdyn(shards, cap, mesh)
+            continue
+        shards = nxt
+        met.add("meta/rounds")
+        n = sum(p.n for p in shards)
+        need = 2 * max([int(p.length.max()) for p in shards if p.n] or [0])
+        if n == prev:
+            stable += 1
+        else:
+            stable, prev = 0, n
+        log.info("extension round %d: %d live rows", it, n)
+        if stable >= 3 and stable % 3 == 0 and census()[1] == n:
+            break
+        if it >= params.min_iterations and stable >= 12:
+            break
+        if it % 8 == 0 and it >= 8:
+            fin, n_fin = census()
+            if n_fin > max(32, cap // 8):
+                batch: List[pd.FlatPool] = []
+                shards = [pd.park_finished_pdyn(p, f, batch)
+                          for p, f in zip(shards, fin)]
+                parked.append(pd.cat(batch, "cpu"))
+                prev = n - n_fin
+                cap = _mesh_capacity(prev, n_dev)
+                shards = parallel.pad_pdyn(shards, cap, mesh)
+                log.info("census: parked %d, %d live", n_fin, prev)
+        if ckpt_dir and time.time() - last_ckpt >= ckpt_every:
+            ckpt.save_loop_state(ckpt_dir, pd.cat(shards, "cpu"), parked, {
+                "it": it, "stable": stable, "prev": prev, "need": need,
+                "max_sub": max_sub, "cap": cap})
+            last_ckpt = time.time()
+        it += 1
+    # the in-loop checkpoints stay until the caller has saved the result
+    return pd.merge_parked_pdyn(pd.cat(shards, "cpu"), parked)
+
+
+# ---------------------------------------------------------------------------
 # fixing
 # ---------------------------------------------------------------------------
 
@@ -385,55 +520,80 @@ def dyn_pool_from_rows(rows) -> DynRecords:
     return DynRecords(seq, length, subk, left, right, live)
 
 
-def fixing_rounds_faithful(groups, params: Params, *, kmax: int,
+def _end_kmer_rows(end_windows: torch.Tensor, params: Params, kfix: int):
+    """The fixing pass's end k-mer rows ``(limbs, length, subk, left,
+    right)``: the end windows' distinct canonical kfix-mers, counts
+    flattened to 1 (the reference's marker assignment discards them),
+    fork-filtered both ways, in the graph's row order."""
+    canon = torch.minimum(pack_bases(end_windows, kfix),
+                          pack_bases(revcomp_bases(end_windows), kfix))
+    uniq = torch.unique(canon)
+    rec = build_initial_records(
+        uniq, torch.ones(uniq.numel(), dtype=torch.int32,
+                         device=uniq.device),
+        k=kfix, min_error=params.min_error_for_k(kfix))
+    live = rec.live
+    n = int(live.sum())
+    full = torch.full((n,), kfix, dtype=torch.int32, device=uniq.device)
+    return (pack_seq_matrix(rec.seq[live][:, :kfix].to(torch.uint8)),
+            full, full - 1, rec.left[live], rec.right[live])
+
+
+def fixing_rounds_faithful(pool, params: Params, *, kmax: int,
                            kfix: int = 31, seed: int = 1000,
-                           ckpt_ns: Optional[str] = None, device):
+                           ckpt_ns: Optional[str] = None, device=None,
+                           mesh: Optional["parallel.Mesh"] = None):
     """04Fixing + 05FixingAgain (``ReflexivDSDynamicKmerFixing.java
     :125-259``, ``...RoundTwo.java:138-263``; ``dynamic
-    .fixing_rounds_faithful``, grouped form). Each pass splits every
-    contig's end regions into kfix-mers, deduplicates them, fork-filters
-    them both ways (counts flattened to 1, as the reference's marker
-    assignment does) and runs bounded fixed-k rounds over the end k-mers
-    and the interiors, so ends overlapping at any offset >= kfix re-join.
-    ``ckpt_ns`` saves each finished pass."""
-    if not isinstance(groups, list):
-        raise NotImplementedError(
-            "faithful fixing of a dense pool is the mesh path's form; the "
-            "port takes width-class groups")
+    .fixing_rounds_faithful``). Each pass splits every contig's end
+    regions into kfix-mers, deduplicates them, fork-filters them both ways
+    (counts flattened to 1, as the reference's marker assignment does) and
+    runs bounded fixed-k rounds over the end k-mers and the interiors, so
+    ends overlapping at any offset >= kfix re-join. Without ``mesh`` the
+    pool is width-class groups (:func:`fixing_split_groups`,
+    :func:`run_dyn_extension` on ``device``); with one it is the dense
+    form, a flat pool (:func:`fixing_split_flat`,
+    :func:`run_dyn_extension_mesh`). ``ckpt_ns`` saves each finished
+    pass."""
+    if mesh is not None:
+        pool = as_flat(pool)
+        device = mesh.devices[0]
     for pass_i, n_rounds in enumerate(FIXING_PASS_ROUNDS):
         if ckpt_ns:
             done_dir = f"{ckpt_ns}_p{pass_i}_done"
             if has_success_marker(done_dir):
-                groups = ckpt.load_records(os.path.dirname(done_dir),
-                                           os.path.basename(done_dir))
+                pool = ckpt.load_records(os.path.dirname(done_dir),
+                                         os.path.basename(done_dir),
+                                         flat=mesh is not None)
                 continue
-        end_windows, parts = fixing_split_groups(groups, kmax, kfix)
+        if mesh is None:
+            end_windows, parts = fixing_split_groups(pool, kmax, kfix)
+            end_windows = torch.from_numpy(
+                np.ascontiguousarray(end_windows)).to(device)
+        else:
+            end_windows, *parts = fixing_split_flat(pool.to(device), kmax,
+                                                    kfix)
         if not len(end_windows):
-            return groups
-        ew = torch.from_numpy(np.ascontiguousarray(end_windows)).to(device)
-        canon = torch.minimum(pack_bases(ew, kfix),
-                              pack_bases(revcomp_bases(ew), kfix))
-        uniq = torch.unique(canon)
-        rec = build_initial_records(
-            uniq, torch.ones(uniq.numel(), dtype=torch.int32, device=device),
-            k=kfix, min_error=params.min_error_for_k(kfix))
-        live = rec.live
-        n = int(live.sum())
-        ends_group = (
-            pack_seq_matrix_np(rec.seq[live][:, :kfix].cpu().numpy()),
-            np.full(n, kfix, np.int32), np.full(n, kfix - 1, np.int32),
-            rec.left[live].cpu().numpy(), rec.right[live].cpu().numpy())
+            return pool
+        ends = _end_kmer_rows(end_windows, params, kfix)
         fix_params = dataclasses.replace(
             params, min_iterations=min(params.min_iterations, n_rounds))
-        groups = run_dyn_extension(
-            [ends_group] + parts, fix_params, kmin=kfix,
-            seed=seed + 500 * pass_i, max_rounds=n_rounds,
-            ckpt_dir=f"{ckpt_ns}_p{pass_i}" if ckpt_ns else None,
-            device=device)
+        loop_args = dict(kmin=kfix, seed=seed + 500 * pass_i,
+                         max_rounds=n_rounds,
+                         ckpt_dir=f"{ckpt_ns}_p{pass_i}" if ckpt_ns else None)
+        if mesh is None:
+            limbs, *cols = (t.cpu().numpy() for t in ends)
+            pool = run_dyn_extension(
+                [(limbs.astype(np.uint32), *cols)] + parts, fix_params,
+                device=device, **loop_args)
+        else:
+            pool = run_dyn_extension_mesh(
+                pd.cat([pd.from_dense(*ends), *parts], "cpu"), fix_params,
+                mesh=mesh, **loop_args)
         if ckpt_ns:
             ckpt.save_records(os.path.dirname(done_dir),
-                              os.path.basename(done_dir), groups)
-    return groups
+                              os.path.basename(done_dir), pool)
+    return pool
 
 
 def fixing_rounds(pool, params: Params, *, kfix: int = 31, seed: int = 1000,
@@ -456,6 +616,83 @@ def fixing_rounds(pool, params: Params, *, kfix: int = 31, seed: int = 1000,
     dense = groups_to_dense(groups)
     return to_dyn_host(PackedDynRecords(*dense, np.ones(len(dense[1]),
                                                         bool)))
+
+
+def fixing_split_flat(pool: pd.FlatPool, kmax: int, kfix: int = 31):
+    """The 04Fixing split of a dense pool (``dynamic._fixing_split_arrays``)
+    over a flat pool on its device: rows of at least ``2 * kmax`` bases
+    give ``w = kmax - kfix + 1`` kfix-mers from each end and their
+    interior cut by ``w`` on both sides (``subk = kfix - 1``, blocked
+    ends blocked at ``3 + kmax``), in pool order; shorter rows pass
+    through. Returns ``(end windows (M, kfix) uint8, interiors,
+    smalls)``."""
+    w = kmax - kfix + 1
+    win = w + kfix - 1
+    big = pool.length >= 2 * kmax
+    bidx = torch.nonzero(big).squeeze(1)
+    smalls = pd.take(pool, torch.nonzero(~big).squeeze(1))
+    blen = pool.length[bidx]
+    ends = []
+    for start in (torch.zeros_like(blen), (blen - win).clamp(min=0)):
+        block = unpack_seq_matrix(pd.pool_window(pool, start, win, bidx), win)
+        ends.append(block.unfold(1, kfix, 1)[:, :w].reshape(-1, kfix))
+    limbs, int_len = pd.flat_concat(
+        pool, bidx, torch.zeros_like(blen), bidx, blen - w,
+        torch.full_like(blen, w))
+    bl, br = pool.left[bidx], pool.right[bidx]
+    interiors = pd.FlatPool(
+        limbs, int_len, torch.full_like(blen, kfix - 1),
+        torch.where(bl >= 0, 3 + kmax, bl).to(torch.int32),
+        torch.where(br >= 0, 3 + kmax, br).to(torch.int32))
+    return torch.cat(ends), interiors, smalls
+
+
+def fixing_rounds_mesh(pool, params: Params, *, mesh: "parallel.Mesh",
+                       kfix: int = 31, seed: int = 1000,
+                       ckpt_ns: Optional[str] = None) -> pd.FlatPool:
+    """:func:`fixing_rounds` on a mesh (``dynamic.fixing_rounds`` with a
+    mesh): the same eligible rows and attrs, then
+    :func:`run_dyn_extension_mesh` with unique joins only, at most 48
+    rounds."""
+    pool = as_flat(pool)
+    eligible = pool.length >= kfix
+    pool = pool._replace(
+        subk=torch.where(eligible, (pool.length - 1).clamp(max=kfix - 1),
+                         pool.subk).to(torch.int32),
+        left=torch.where(eligible, -1, pool.left).to(torch.int32),
+        right=torch.where(eligible, -1, pool.right).to(torch.int32))
+    return run_dyn_extension_mesh(
+        pool, params, kmin=kfix, seed=seed, unique_only=True, max_rounds=48,
+        ckpt_dir=f"{ckpt_ns}_fast" if ckpt_ns else None, mesh=mesh)
+
+
+def decode_flat_to_raw(pool: pd.FlatPool, params: Params):
+    """(contig, left, right) of every row of a flat pool that is not
+    repeat-killed and at least ``min_contig`` long, in row order."""
+    pool = pool.to("cpu")
+    keep = ~((pool.left <= REPEAT_KILLED) & (pool.right <= REPEAT_KILLED))
+    keep &= pool.length >= params.min_contig
+    part = pd.take(pool, torch.nonzero(keep).squeeze(1))
+    limbs = part.limbs.numpy().astype(np.uint32)
+    off, nl = (t.numpy() for t in pd.row_offsets(part.length))
+    return [(decode_to_str(unpack_rows_np(limbs[None, o:o + w], int(n))[0]),
+             int(l), int(r))
+            for o, w, n, l, r in zip(off, nl, part.length.tolist(),
+                                     part.left.tolist(), part.right.tolist())]
+
+
+def flat_from_rows(rows) -> pd.FlatPool:
+    """``(codes, subk, left, right)`` rows -> a host flat pool in order
+    (``dynamic._dyn_pool_from_rows``' live rows)."""
+    limbs = [pack_seq_matrix_np(np.asarray(c, np.uint8)[None])[0]
+             [:limbs_for(len(c))] for c, _, _, _ in rows]
+    cols = [torch.tensor([row[i] for row in rows], dtype=torch.int32)
+            for i in (1, 2, 3)]
+    return pd.FlatPool(
+        torch.from_numpy(np.concatenate(limbs + [np.zeros(0, np.uint32)])
+                         .astype(np.int64)),
+        torch.tensor([len(c) for c, _, _, _ in rows], dtype=torch.int32),
+        *cols)
 
 
 # ---------------------------------------------------------------------------
@@ -580,11 +817,16 @@ def _reduced_tables(params: Params, klist):
 
 def assemble_dynamic(bases, lengths, params: Params, *, seed: int = 0,
                      workdir: Optional[str] = None, device,
-                     plain: bool = False) -> List[Tuple[str, str]]:
+                     plain: bool = False,
+                     mesh: Optional["parallel.Mesh"] = None
+                     ) -> List[Tuple[str, str]]:
     """Full dynamic multi-k assembly from a read code matrix (numpy or
     tensors; ``dynamic.assemble_dynamic``). With ``workdir`` every stage
     checkpoints and the call resumes from the newest completed stage.
-    ``plain=True`` counts through the kernels' plain torch versions."""
+    ``plain=True`` counts through the kernels' plain torch versions. With
+    ``mesh``, stage 00 counts on the mesh and stages 02, 03 and 05 run the
+    mesh loop (the module docstring); the other stages run on
+    ``device``."""
     device = resolve_device(device)
     met = metrics.current()
     if workdir:
@@ -608,13 +850,29 @@ def assemble_dynamic(bases, lengths, params: Params, *, seed: int = 0,
                          for x in (bases, lengths))
         return reads
 
+    devices = {device, *(mesh.devices if mesh is not None else ())}
+    cards = [d for d in devices if d.type == "cuda"]
+
     def lap(name):
-        synchronize(device)
+        for dev in devices:
+            synchronize(dev)
         met.lap(name)
+        if cards:
+            # the stage's own peak on any card; the counters restart for
+            # the next stage, and meta/peak_bytes keeps the run's highest
+            peak = max(torch.cuda.max_memory_allocated(d) for d in cards)
+            met.set(f"{name}.peak_bytes", peak)
+            met.set("meta/peak_bytes",
+                    max(peak, met.counts.get("meta/peak_bytes", 0)))
+            for d in cards:
+                torch.cuda.reset_peak_memory_stats(d)
 
     pool = sorted_sets = None
     if 0 <= resume_idx < 4:
-        pool = ckpt.load_records(workdir, stages[resume_idx])
+        # the mesh stages' pools come back flat: a megabase row never
+        # widens every row of a dense matrix
+        pool = ckpt.load_records(workdir, stages[resume_idx],
+                                 flat=mesh is not None and resume_idx >= 2)
     if resume_idx < 0:
         t0 = time.perf_counter()
         pre = _reduced_tables(params, klist)
@@ -639,7 +897,8 @@ def assemble_dynamic(bases, lengths, params: Params, *, seed: int = 0,
         pattern = params.input_fastq or params.input_fasta
         budget = ingest_budget_bytes()
         streamed = None
-        if budget and pattern and missing and not params.sensitive:
+        if budget and pattern and missing and not params.sensitive \
+                and mesh is None:
             # one pass over the files counts every k not checkpointed
             streamed = count_kmers_from_files_multi(
                 pattern, missing, min_cov=params.min_kmer_coverage,
@@ -648,25 +907,36 @@ def assemble_dynamic(bases, lengths, params: Params, *, seed: int = 0,
                 params=params, budget_bytes=budget, device=device,
                 plain=plain)
         for k in missing:
-            if streamed is not None:
-                keys, counts = streamed.pop(k)
-            elif params.sensitive:
-                # mercy k-mers enter the ladder per k
-                # (Pipelines.java:1388-1391)
-                keys, counts = mercy_kmer_table(
-                    *on_device(), k=k, min_cov=params.min_kmer_coverage,
-                    max_cov=params.max_kmer_coverage, device=device,
-                    plain=plain)
+            if mesh is not None and not params.sensitive:
+                sorted_sets[k] = parallel.sort_k_records_sharded(
+                    *on_device(), k, params, mesh=mesh, plain=plain)
             else:
-                mat, lens = on_device()
-                keys, counts = count_kmers_auto(
-                    mat, lens, k=k, min_cov=params.min_kmer_coverage,
-                    max_cov=params.max_kmer_coverage,
-                    front_clip=params.front_clip, end_clip=params.end_clip,
-                    partitions=params.partitions, device=device,
-                    plain=plain)
-            sorted_sets[k] = sort_k_records(keys, counts, k, params)
-            del keys, counts
+                if streamed is not None:
+                    keys, counts = streamed.pop(k)
+                elif params.sensitive and mesh is not None:
+                    keys, counts = parallel.mercy_kmer_table_sharded(
+                        *on_device(), k=k, min_cov=params.min_kmer_coverage,
+                        max_cov=params.max_kmer_coverage, mesh=mesh,
+                        plain=plain)
+                    keys, counts = keys.to(device), counts.to(device)
+                elif params.sensitive:
+                    # mercy k-mers enter the ladder per k
+                    # (Pipelines.java:1388-1391)
+                    keys, counts = mercy_kmer_table(
+                        *on_device(), k=k, min_cov=params.min_kmer_coverage,
+                        max_cov=params.max_kmer_coverage, device=device,
+                        plain=plain)
+                else:
+                    mat, lens = on_device()
+                    keys, counts = count_kmers_auto(
+                        mat, lens, k=k, min_cov=params.min_kmer_coverage,
+                        max_cov=params.max_kmer_coverage,
+                        front_clip=params.front_clip,
+                        end_clip=params.end_clip,
+                        partitions=params.partitions, device=device,
+                        plain=plain)
+                sorted_sets[k] = sort_k_records(keys, counts, k, params)
+                del keys, counts
             log.info("k=%d: %d sorted records", k, len(sorted_sets[k][0]))
             if workdir:
                 ckpt.save_kset(workdir, f"00partial/k{k}", sorted_sets[k], k)
@@ -708,21 +978,30 @@ def assemble_dynamic(bases, lengths, params: Params, *, seed: int = 0,
 
     if resume_idx < 2:
         rounds0 = met.counts.get("meta/rounds", 0)
-        pool = run_dyn_extension(
-            pool, params, kmin=kmin, seed=seed,
-            ckpt_dir=os.path.join(workdir, "02partial") if workdir else None,
-            device=device)
+        ckpt_dir = os.path.join(workdir, "02partial") if workdir else None
+        if mesh is not None:
+            pool = run_dyn_extension_mesh(pool, params, kmin=kmin, seed=seed,
+                                          ckpt_dir=ckpt_dir, mesh=mesh)
+        else:
+            pool = run_dyn_extension(pool, params, kmin=kmin, seed=seed,
+                                     ckpt_dir=ckpt_dir, device=device)
         met.set("meta/extension_rounds",
                 met.counts.get("meta/rounds", 0) - rounds0)
         if workdir:
             ckpt.save_records(workdir, "02extended", pool)
             ckpt.clear_partial(workdir, "02partial")
         lap("meta/02extend")
-        met.set("meta/live_after_extension", sum(len(g[1]) for g in pool))
+        met.set("meta/live_after_extension",
+                pool.n if mesh is not None else sum(len(g[1]) for g in pool))
 
     if resume_idx < 3:
         fix_ns = os.path.join(workdir, "03partial") if workdir else None
-        if os.environ.get("REFLEXIV_FAST_FIXING") == "1" or kmax < 32:
+        fast = os.environ.get("REFLEXIV_FAST_FIXING") == "1" or kmax < 32
+        if fast and mesh is not None:
+            pool = fixing_rounds_mesh(pool, params, kfix=min(31, kmin),
+                                      seed=seed + 1000, ckpt_ns=fix_ns,
+                                      mesh=mesh)
+        elif fast:
             if isinstance(pool, list):
                 dense = groups_to_dense(pool)
                 pool = PackedDynRecords(*dense, np.ones(len(dense[1]), bool))
@@ -732,15 +1011,19 @@ def assemble_dynamic(bases, lengths, params: Params, *, seed: int = 0,
         else:
             pool = fixing_rounds_faithful(pool, params, kmax=kmax,
                                           seed=seed + 1000, ckpt_ns=fix_ns,
-                                          device=device)
+                                          device=device, mesh=mesh)
         if workdir:
             ckpt.save_records(workdir, "03fixed", pool)
             ckpt.clear_partial(workdir, "03partial")
         lap("meta/03fixing")
 
     if resume_idx < 4:
-        raw = (decode_groups_to_raw(pool, params) if isinstance(pool, list)
-               else _decode_pool_to_raw(pool, params))
+        if mesh is not None:
+            raw = decode_flat_to_raw(pool, params)
+        elif isinstance(pool, list):
+            raw = decode_groups_to_raw(pool, params)
+        else:
+            raw = _decode_pool_to_raw(pool, params)
         del pool
         from .mapping import end_extend_arrays
         from .reassemble import parse_contig_attrs, reassemble_arrays
@@ -765,7 +1048,14 @@ def assemble_dynamic(bases, lengths, params: Params, *, seed: int = 0,
         if raw and os.environ.get("REFLEXIV_SKIP_EXTEND_PASS") != "1":
             rows = [(encode_ascii(np.frombuffer(s.encode(), np.uint8)),
                      kfix - 1, l, r) for s, l, r in raw]
-            if kmax >= 32:
+            if mesh is not None:
+                flat = flat_from_rows(rows)
+                flat = fixing_rounds_mesh(
+                    flat, params, kfix=kfix, seed=seed + 3000, mesh=mesh) \
+                    if kmax < 32 else fixing_rounds_faithful(
+                        flat, params, kmax=kmax, seed=seed + 3000, mesh=mesh)
+                raw = decode_flat_to_raw(flat, params)
+            elif kmax >= 32:
                 raw = decode_groups_to_raw(fixing_rounds_faithful(
                     groups_from_contig_rows(rows), params, kmax=kmax,
                     seed=seed + 3000, device=device), params)
@@ -791,8 +1081,10 @@ def assemble_dynamic(bases, lengths, params: Params, *, seed: int = 0,
 
 
 def dynamic_assembly(params: Params, *, seed: int = 0, device,
-                     plain: bool = False) -> None:
-    """The ``meta`` command (``dynamic.dynamic_assembly``, one device):
+                     plain: bool = False,
+                     mesh: Optional["parallel.Mesh"] = None) -> None:
+    """The ``meta`` command (``dynamic.dynamic_assembly``; on ``mesh`` when
+    one is given, as the JAX command takes one over several devices):
     assemble with checkpoints under ``<out>/steps``, patch with
     ``-patch``/``-scaffold`` (the link table, when it has rows, to
     ``<out>/04Patching/links.tsv``), and write
@@ -809,7 +1101,7 @@ def dynamic_assembly(params: Params, *, seed: int = 0, device,
     met.add_time("meta/ingest", time.perf_counter() - t0)
     contigs = assemble_dynamic(
         mat, lens, params, seed=seed, device=device, plain=plain,
-        workdir=os.path.join(params.output_path, "steps"))
+        workdir=os.path.join(params.output_path, "steps"), mesh=mesh)
     if params.patch or params.scaffold:
         from .patching import apply_patching
 

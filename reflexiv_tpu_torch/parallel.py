@@ -24,16 +24,25 @@ the owners' tables are the JAX package's and any input size counts.
 Records stay on their shard between rounds;
 each round's exchange keeps only the live rows, in order, which is the JAX
 package's stable live-first compaction.
+
+``meta`` takes a mesh too (``meta.assemble_dynamic(..., mesh=)``): stage 00
+counts and fork-filters each k here (:func:`sort_k_records_sharded`, or
+:func:`mercy_kmer_table_sharded` under ``-accurate``), and the mixed-k
+rounds of stages 02, 03 and 05 run :func:`pdyn_extension_round_sharded`
+on per-shard :class:`packed_dyn.FlatPool` pools, which
+:func:`pad_pdyn` lays out as the JAX package's ``_pad_pdyn`` does.
 """
 from __future__ import annotations
 
-from typing import List, NamedTuple, Sequence, Tuple
+from typing import List, NamedTuple, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
 from . import metrics
 from . import packed as pk
+from . import packed_dyn as pd
 from .assembler import extension_fixpoint
 from .bitpack import (check_k, limbs_from_keys, mix32, pack_bases,
                       revcomp_bases, unpack_bases)
@@ -51,6 +60,8 @@ PREFIX_SALT = 0xB5297A4D   # :532, fork pass 1
 SUFFIX_SALT = 0x68E31DA4   # :540, fork pass 2
 ROUND_SALT = 0x85EBCA6B    # :304
 CENSUS_SALT = 0xC2B2AE35   # :622
+DYN_ROUND_SALT = 0x27D4EB2F  # :376, the mixed-k round
+DYN_CAP_FACTOR = 4           # the JAX mesh loop's bucket rows (dynamic.py:685)
 
 
 class Mesh(NamedTuple):
@@ -190,9 +201,8 @@ def shard_passes(R: int, L: int, k: int, mesh: Mesh, partitions: int = 0
 
 
 def count_kmers_sharded(bases, lengths, *, k: int, min_cov: int,
-                        max_cov: int = 10_000_000, front_clip: int = 0,
-                        end_clip: int = 0, partitions: int = 0, mesh: Mesh,
-                        plain: bool = False
+                        max_cov: int = 10_000_000, partitions: int = 0,
+                        mesh: Mesh, plain: bool = False
                         ) -> List[Tuple[torch.Tensor, torch.Tensor]]:
     """Sharded canonical k-mer counting (``parallel.count_kmers_sharded``).
     In each pass of :func:`shard_passes` every shard counts its rows with
@@ -205,7 +215,9 @@ def count_kmers_sharded(bases, lengths, *, k: int, min_cov: int,
     JAX package's owner counts from every window it receives; every key
     lives on exactly one shard. Any number of reads counts, in passes of
     at most ``STREAM_WINDOW_LIMIT // W`` windows a shard (fewer under
-    ``partitions``). ``plain`` runs the kernels' plain versions."""
+    ``partitions``). ``plain`` runs the kernels' plain versions. Like the
+    JAX function it takes no clips: the sharded ``run`` and ``meta``
+    count every base of every read whatever ``-clipf``/``-clipe`` say."""
     check_k(k)
     n = mesh.size
     R, L = bases.shape
@@ -219,8 +231,7 @@ def count_kmers_sharded(bases, lengths, *, k: int, min_cov: int,
             if hi > lo:
                 local.append(count_kmers(
                     bases[lo:hi], lengths[lo:hi], k=k, min_cov=1,
-                    max_cov=COUNT_MAX, front_clip=front_clip,
-                    end_clip=end_clip, device=dev, plain=plain))
+                    max_cov=COUNT_MAX, device=dev, plain=plain))
             else:
                 local.append(empty_table(k, dev))
         route = plan_route([hash_owner(limbs_from_keys(keys, k), n,
@@ -294,6 +305,79 @@ def build_initial_records_sharded(
     return out
 
 
+def _as_shard(x, dtype, dev) -> torch.Tensor:
+    t = torch.from_numpy(np.ascontiguousarray(x)) \
+        if isinstance(x, np.ndarray) else x
+    return t.to(dev, dtype)
+
+
+def sort_k_records_sharded(bases, lengths, k: int, params: Params, *,
+                           mesh: Mesh, plain: bool = False):
+    """Stage 00 of ``meta`` for one k on a mesh (``dynamic
+    .sort_k_records_sharded``): :func:`count_kmers_sharded` (no clips) and
+    :func:`build_initial_records_sharded`, then every shard's records in
+    shard order, as host ``(bases (M, k) uint8, left, right)``."""
+    tables = count_kmers_sharded(
+        bases, lengths, k=k, min_cov=params.min_kmer_coverage,
+        max_cov=params.max_kmer_coverage, mesh=mesh, plain=plain)
+    recs = build_initial_records_sharded(
+        tables, k=k, min_error=params.min_error_for_k(k), mesh=mesh,
+        bubble=params.bubble)
+    return tuple(np.concatenate([c.cpu().numpy() for c in col])
+                 for col in zip(*((r.seq[:, :k].to(torch.uint8), r.left,
+                                   r.right) for r in recs)))
+
+
+def mercy_kmer_table_sharded(bases, lengths, *, k: int, min_cov: int,
+                             max_cov: int = 10_000_000, mesh: Mesh,
+                             plain: bool = False):
+    """Solid + mercy table with the count table hash-sharded
+    (``parallel.mercy_kmer_table_sharded`` and ``_mercy_flags_sharded``):
+    a ``min_cov = 1`` table per shard (:func:`count_kmers_sharded`); each
+    shard cuts its reads' windows with the extraction kernel and sends
+    each to the shard owning its key, which looks its count up and sends
+    it back; the flank rule runs on the reads' own shard
+    (:func:`mercy.flank_rule`); every mercy key goes to its owner, which
+    flags that table row. Returns ``(keys, counts)`` on the first shard's
+    device: each shard's solid and flagged rows, shards in order. The
+    windows go in the passes of :func:`shard_passes`."""
+    from .mercy import flank_rule, lookup_counts, window_keys
+
+    n = mesh.size
+    tables = count_kmers_sharded(bases, lengths, k=k, min_cov=1,
+                                 max_cov=max_cov, mesh=mesh, plain=plain)
+    flags = [torch.zeros(c.numel(), dtype=torch.bool, device=c.device)
+             for _, c in tables]
+    R, L = bases.shape
+    for ranges in shard_passes(R, L, k, mesh):
+        keys, valid, owners = [], [], []
+        for (lo, hi), dev in zip(ranges, mesh.devices):
+            kk, ok = window_keys(
+                _as_shard(bases[lo:hi], torch.uint8, dev),
+                _as_shard(lengths[lo:hi], torch.int32, dev), k=k,
+                plain=plain)
+            keys.append(kk)
+            valid.append(ok)
+            owners.append(torch.where(
+                ok, hash_owner(limbs_from_keys(kk, k), n, COUNT_SALT), n))
+        route = plan_route(owners, mesh)
+        found = [lookup_counts(tk, tc, q)[0] for (q,), (tk, tc) in
+                 zip(send(route, [(kk,) for kk in keys], mesh), tables)]
+        counts = send_back(route, found, mesh, fill=0)
+        mercy = [torch.where(flank_rule(c, ok, hi - lo, min_cov), o, n)
+                 for c, ok, o, (lo, hi) in zip(counts, valid, owners,
+                                               ranges)]
+        got = send(plan_route(mercy, mesh), [(kk,) for kk in keys], mesh)
+        for (q,), (tk, _tc), fl in zip(got, tables, flags):
+            hit, pos = lookup_counts(tk, torch.ones_like(_tc), q)
+            fl[pos[hit > 0]] = True
+    out = [(tk[(tc >= min_cov) | fl], tc[(tc >= min_cov) | fl])
+           for (tk, tc), fl in zip(tables, flags)]
+    dev = mesh.devices[0]
+    return (torch.cat([kk.to(dev) for kk, _ in out]),
+            torch.cat([cc.to(dev) for _, cc in out]))
+
+
 # ---------------------------------------------------------------------------
 # extension rounds and the census
 # ---------------------------------------------------------------------------
@@ -353,6 +437,86 @@ def finished_mask_sharded(pools: List[pk.PackedRecords], *, k: int,
     back = send_back(route, verdicts, mesh, fill=True)
     return [p.live & ~b[:p.capacity] & ~b[p.capacity:]
             for p, b in zip(pools, back)]
+
+
+def pad_pdyn(pools: List[pd.FlatPool], cap: int, mesh: Mesh
+             ) -> List[pd.FlatPool]:
+    """Lay the rows of ``pools`` (in order) out as ``dynamic._pad_pdyn``
+    and ``P("shards")`` do: into a pool of ``cap`` rows split into
+    contiguous blocks of ``cap / n``, so shard s holds rows
+    ``[s * cap / n, (s + 1) * cap / n)`` of the whole, and only its live
+    rows are kept."""
+    n = mesh.size
+    M = cap // n
+    sizes = [p.n for p in pools]
+    total = sum(sizes)
+    if total > cap:
+        raise ValueError(f"{total} live rows exceed capacity {cap}")
+    pieces = [[] for _ in range(n)]
+    g = 0
+    for p, size in zip(pools, sizes):
+        cuts = [min(max(t * M - g, 0), size) for t in range(n + 1)]
+        for t, part in enumerate(pd.split(p, [b - a for a, b in
+                                              zip(cuts, cuts[1:])])):
+            pieces[t].append(part)
+        g += size
+    return [pd.cat(ps, dev) for ps, dev in zip(pieces, mesh.devices)]
+
+
+def send_pools(route: Route, pools: List[pd.FlatPool], mesh: Mesh
+               ) -> List[pd.FlatPool]:
+    """:func:`send` for flat pools: each source's rows in route order, cut
+    per destination; each destination takes the sources in mesh order."""
+    parts = [pd.split(pd.take(p, route.orders[s][:sum(route.sizes[s])]),
+                      route.sizes[s]) for s, p in enumerate(pools)]
+    return [pd.cat([parts[s][d] for s in range(mesh.size)], dev)
+            for d, dev in enumerate(mesh.devices)]
+
+
+def pdyn_extension_round_sharded(
+    pools: List[pd.FlatPool], round_seed: int, *, kmin: int, max_sub: int,
+    mesh: Mesh, cap: int, unique_only: bool = False,
+) -> Optional[List[pd.FlatPool]]:
+    """One sharded mixed-k round (``parallel.pdyn_extension_round_sharded``):
+    each row goes to the owner of its (kmin-1)-base group key (``mix32``
+    chained over the key's limbs, salt ``0x27D4EB2F``), and the owner runs
+    :func:`packed_dyn.pdyn_extension_round_fused` on what it received;
+    each shard keeps its joined rows in order. Returns None where the JAX
+    round would overflow on a pool of ``cap`` rows (a source sends more
+    than ``max(1, DYN_CAP_FACTOR * M // n)`` rows to one shard, or a shard
+    ends with more than ``M = cap / n`` rows): the caller then re-lays at
+    twice the capacity, as the JAX loop does. No row is ever dropped."""
+    n = mesh.size
+    M = cap // n
+    owners = [hash_owner(pd.group_keys(p, round_seed, kmin)[1], n,
+                         DYN_ROUND_SALT) for p in pools]
+    route = plan_route(owners, mesh)
+    if max(max(row) for row in route.sizes) > max(1, DYN_CAP_FACTOR * M // n):
+        return None
+    out = [pd.pdyn_extension_round_fused(
+        p, round_seed, kmin=kmin, max_sub=max_sub,
+        unique_only=unique_only)[0]
+        for p in send_pools(route, pools, mesh)]
+    return None if max(p.n for p in out) > M else out
+
+
+def finished_mask_pdyn_sharded(pools: List[pd.FlatPool], max_sub: int,
+                               mesh: Mesh) -> List[torch.Tensor]:
+    """The mesh loop's census (``finished_mask_pdyn_exact`` over the whole
+    pool): every shard's head and tail windows gathered on the first
+    shard's device, :func:`packed_dyn.finished_mask` over them, and each
+    shard's part of the mask back on its device."""
+    dev = mesh.devices[0]
+    if not sum(p.n for p in pools):
+        return [torch.zeros(0, dtype=torch.bool, device=p.length.device)
+                for p in pools]
+    summ = [pd.summaries(p, max_sub) for p in pools]
+    fin = pd.finished_mask(
+        torch.cat([h.to(dev) for h, _ in summ]),
+        torch.cat([t.to(dev) for _, t in summ]),
+        torch.cat([p.subk.to(dev) for p in pools]), max_sub)
+    return [f.to(p.length.device) for f, p in
+            zip(fin.split([p.n for p in pools]), pools)]
 
 
 # ---------------------------------------------------------------------------
@@ -432,8 +596,8 @@ def assemble_reads_sharded(bases, lengths, params: Params, *, mesh: Mesh,
                            ) -> List[Tuple[str, str]]:
     """Single-k assembly with counting, the fork filter and the extension
     rounds sharded over ``mesh`` (``parallel.assemble_reads_sharded``);
-    only bucket sizes, live counts and the contigs reach the host. The
-    clips apply as in :func:`assembler.assemble_reads`, and the count
+    only bucket sizes, live counts and the contigs reach the host. As in
+    the JAX package, ``-clipf``/``-clipe`` do not apply here; the count
     streams in passes past ``STREAM_WINDOW_LIMIT // W`` windows a shard or
     under ``-partition`` (:func:`count_kmers_sharded`). ``plain`` counts
     through the kernels' plain versions."""
@@ -441,9 +605,8 @@ def assemble_reads_sharded(bases, lengths, params: Params, *, mesh: Mesh,
     met = metrics.current()
     tables = count_kmers_sharded(
         bases, lengths, k=params.k, min_cov=params.min_kmer_coverage,
-        max_cov=params.max_kmer_coverage, front_clip=params.front_clip,
-        end_clip=params.end_clip, partitions=params.partitions, mesh=mesh,
-        plain=plain)
+        max_cov=params.max_kmer_coverage, partitions=params.partitions,
+        mesh=mesh, plain=plain)
     met.set("sharded/solid_kmers", sum(c.numel() for _, c in tables))
     _lap("sharded/counting", mesh)
     recs = build_initial_records_sharded(

@@ -301,6 +301,33 @@ def test_cmd_run_on_a_mesh_matches_jax_cli(jx, tmp_path):
             assert a.read() == b.read(), name
 
 
+def test_cmd_run_on_a_mesh_ignores_clips_as_jax_cli(jx, tmp_path):
+    """The JAX sharded count takes no clips, so its mesh ``run`` ignores
+    ``-clipf``/``-clipe``; the port's copies that: with the clips set,
+    ``part-00000`` and the report equal the JAX CLI's byte for byte."""
+    mat, lens, params = _assembly_case()
+    fq = str(tmp_path / "reads.fq")
+    _write_fastq(fq, mat, lens)
+    jout = str(tmp_path / "jax")
+    assert jx.cli.main(["run", "-fastq", fq, "-kmer", "21", "-cover", "2",
+                        "-mincontig", "300", "-miniter", "12", "-seed", "2",
+                        "-clipf", "5", "-clipe", "7", "-outfile", jout]) == 0
+    out = str(tmp_path / "port")
+    cli.cmd_run(dataclasses.replace(params, input_fastq=fq, output_path=out,
+                                    front_clip=5, end_clip=7),
+                2, "cpu", mesh=MESH)
+    for name in ("part-00000", "assembly_report.txt"):
+        with open(os.path.join(out, name)) as a, \
+                open(os.path.join(jout, name)) as b:
+            assert a.read() == b.read(), name
+    # the clips would have changed the contigs: one card applies them
+    clipped = assemble_reads(mat, lens, dataclasses.replace(
+        params, front_clip=5, end_clip=7), seed=2, device="cpu")
+    with open(os.path.join(out, "part-00000")) as fh:
+        seqs = [ln for ln in fh.read().split() if not ln.startswith(">")]
+    assert sorted(s for _, s in clipped) != sorted(seqs)
+
+
 def test_auto_mesh_only_for_bare_cuda():
     assert cli._auto_mesh("cpu") is None
     assert cli._auto_mesh(torch.device("cpu")) is None
