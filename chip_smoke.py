@@ -43,10 +43,25 @@ script. Phases, one line each:
      for end extension, and counts the reads at k = 23 when contigs of
      at most 64 kb go through reassembly), and the
      canonical contig total at least 0.95 x the genome (no upper bound:
-     the algorithm's contigs overlap);
+     the algorithm's contigs overlap), and rounds of the device-pool loop
+     (the default off the TPU); it prints the rounds of each loop form,
+     stage 02's split (round joins, census, host splices, the rest) and
+     stage 02's own peak device memory;
+  9i. phase 9's ``steps/`` up to ``01reduced`` copied into a fresh
+     -outfile and ``meta`` run there under ``REFLEXIV_INDEXED_ALWAYS=1``:
+     it resumes at stage 02, runs only the summary-indexed loop and
+     reaches ``Assembly/_SUCCESS``; both forms' stage 02 walls, host
+     splices, rounds and peaks, the canonical total (at least 0.95 x the
+     genome) and whether its canonical set equals phase 9's (the forms
+     make different joins, so equality is not required);
   10. ``meta`` through the kernels vs through their plain versions on the
      200 kb genome and on a 30 kb one, whose contigs go through read-graph
-     reassembly: identical (header, sequence) lists;
+     reassembly: identical (header, sequence) lists; in three settings:
+     the default loop, ``REFLEXIV_INDEXED_ALWAYS=1`` (no device round),
+     and ``REFLEXIV_BUCKET_ROUND_ROWS`` at a quarter of the 200 kb stage
+     02 pool's rows, so that stage 02 hands its pool from the indexed
+     form to the device form on the card (more indexed rounds than the
+     default's, and device rounds);
   11. ``-accurate`` and ``-patch``/``-scaffold`` at bacterial scale: a
      paired library of the phase-4 genome (2 x 100 bp reads of 400 +- 40
      bp fragments on a random strand, 30x, 696,247 pairs, 0.5%
@@ -60,8 +75,9 @@ script. Phases, one line each:
      least one row in ``04Patching/links.tsv``, at least one N run, mercy
      k-mers rescued at k = 23, 31 and 41 (``mercy/rescued_k<k>``), the
      one-word and every W-word extraction and sort launched, canonical
-     total at least 0.95 x the genome; it prints the stage split, links,
-     N runs, planted stretches bridged and peak device memory;
+     total at least 0.95 x the genome, rounds of the device-pool loop; it
+     prints the stage split, the loop forms and stage 02 as phase 9 does,
+     links, N runs, planted stretches bridged and peak device memory;
   11b. both patching map forms on phase 11's contigs before patching
      (``steps/04contigs``) and its pairs: the native hashed call (the
      default) and the device form (``REFLEXIV_DEVICE_STAGES=1``), their
@@ -732,7 +748,9 @@ def phases_4_to_8(torch, args, dev, work, fq, genome, launches, rows,
         f"{json.dumps(met['stages_s'])}; counters "
         f"{json.dumps(met['counters'])}")
     torch.cuda.empty_cache()
-    tally(meta_phase(torch, cli, fq, rout, genome))
+    got9, met9, set9 = meta_phase(torch, cli, fq, rout, genome)
+    tally(got9)
+    tally(indexed_phase(torch, cli, fq, rout, work, met9, set9))
     shutil.rmtree(rout)
 
     # 8. reduce, kernel path vs plain path on the card, 200 kb
@@ -760,37 +778,102 @@ def phases_4_to_8(torch, args, dev, work, fq, genome, launches, rows,
         f"{walls[1]:.1f} s")
 
     # 10. meta, kernel path vs plain path on the card: at 200 kb, and at
-    # 30 kb, where the contigs are short enough for read-graph reassembly
+    # 30 kb, where the contigs are short enough for read-graph reassembly;
+    # in the default loop form, under REFLEXIV_INDEXED_ALWAYS=1, and with
+    # REFLEXIV_BUCKET_ROUND_ROWS under the 200 kb stage 02 pool, so that
+    # stage 02 hands its pool from the indexed form to the device form
     from reflexiv_tpu_torch.meta import dynamic_assembly
 
     _g, frag = simulate(np.random.default_rng(args.seed + 2), FRAG_BP)
     ffq = os.path.join(work, "frag.fq")
     write_fastq(ffq, frag)
-    for label, path in (("200 kb", sfq), ("30 kb", ffq)):
-        walls, lists, fragments = [], [], []
-        for name, plain in (("meta_kernels", False), ("meta_plain", True)):
-            out = os.path.join(work, name + label.replace(" ", ""))
-            metrics.reset()
-            t0 = time.perf_counter()
-            dynamic_assembly(Params(min_kmer_coverage=3, input_fastq=path,
-                                    output_path=out), device=dev, plain=plain)
-            walls.append(time.perf_counter() - t0)
-            fragments.append(metrics.current().counts.get(
-                "meta/reassembly_fragments", 0))
-            lists.append(contig_seqs(os.path.join(out, "Assembly",
-                                                  "part-00000")))
-        if not lists[0] or lists[0] != lists[1]:
-            raise SystemExit(f"meta kernel path ({len(lists[0])} contigs) "
-                             f"!= plain path ({len(lists[1])} contigs) at "
-                             f"{label}")
-        if label == "30 kb" and min(fragments) < 1:
-            raise SystemExit(f"meta at 30 kb skipped reassembly: {fragments}")
-        st = assembly_stats(lists[0])
-        say(f"phase 10 meta {label}: kernel path == plain path, "
-            f"{len(lists[0])} contigs, canonical total {st['total_bp']} bp, "
-            f"{fragments[0]} contigs through reassembly; {walls[0]:.1f} s "
-            f"vs {walls[1]:.1f} s")
+    settings = [("default", {}), ("indexed", {"REFLEXIV_INDEXED_ALWAYS": "1"}),
+                ("handoff", None)]
+    indexed_default = None
+    for setting, env in settings:
+        if env is None:
+            with open(os.path.join(work, "meta_kernels200kb", "steps",
+                                   "01reduced", "meta.json")) as fh:
+                rows02 = json.load(fh)["rows"]
+            env = {"REFLEXIV_BUCKET_ROUND_ROWS": str(rows02 // 4)}
+        os.environ.update(env)
+        try:
+            for label, path in (("200 kb", sfq), ("30 kb", ffq)):
+                walls, lists, fragments, forms = [], [], [], []
+                for name, plain in (("meta_kernels", False),
+                                    ("meta_plain", True)):
+                    out = os.path.join(work, name + label.replace(" ", "")
+                                       + setting.replace("default", ""))
+                    m = metrics.reset()
+                    t0 = time.perf_counter()
+                    dynamic_assembly(Params(min_kmer_coverage=3,
+                                            input_fastq=path,
+                                            output_path=out),
+                                     device=dev, plain=plain)
+                    walls.append(time.perf_counter() - t0)
+                    fragments.append(m.counts.get(
+                        "meta/reassembly_fragments", 0))
+                    forms.append((m.counts.get("meta/rounds_indexed", 0),
+                                  m.counts.get("meta/rounds_device", 0)))
+                    lists.append(contig_seqs(os.path.join(
+                        out, "Assembly", "part-00000")))
+                if not lists[0] or lists[0] != lists[1]:
+                    raise SystemExit(
+                        f"meta kernel path ({len(lists[0])} contigs) != "
+                        f"plain path ({len(lists[1])} contigs) at {label}, "
+                        f"{setting} loop")
+                if label == "30 kb" and min(fragments) < 1:
+                    raise SystemExit(
+                        f"meta at 30 kb skipped reassembly: {fragments}")
+                (n_ix, n_dev), _ = forms
+                if setting == "indexed" and n_dev:
+                    raise SystemExit(f"{setting} loop ran device rounds")
+                if setting != "indexed" and n_dev < 1:
+                    raise SystemExit(f"{setting} loop ran no device round")
+                if label == "200 kb" and setting == "default":
+                    indexed_default = n_ix
+                if label == "200 kb" and setting == "handoff" and \
+                        n_ix <= indexed_default:
+                    raise SystemExit(
+                        f"no handoff in stage 02 under {env}: {n_ix} "
+                        f"indexed rounds, {indexed_default} by default")
+                st = assembly_stats(lists[0])
+                say(f"phase 10 meta {label}, {setting} loop "
+                    f"{json.dumps(env)}: kernel path == plain path, "
+                    f"{len(lists[0])} contigs, canonical total "
+                    f"{st['total_bp']} bp, {fragments[0]} contigs through "
+                    f"reassembly; rounds indexed {n_ix}, device {n_dev}; "
+                    f"{walls[0]:.1f} s vs {walls[1]:.1f} s")
+        finally:
+            for var in env:
+                del os.environ[var]
     return rounds4
+
+
+def loop_report(met: dict, steps: str) -> str:
+    """Stage 02 of a one-card ``meta`` from its ``metrics.json`` (each
+    stage's share of the loop's timers and rounds is ``<stage>.<name>``)
+    and its ``steps/``: the rows entering it, its rounds of each loop
+    form, its wall split into the round joins, the census, the host
+    splices, the pool's conversions in and out and the rest, and its own
+    peak device memory."""
+    st, c = met["stages_s"], met["counters"]
+    with open(os.path.join(steps, "01reduced", "meta.json")) as fh:
+        rows = json.load(fh)["rows"]
+    names = {"join": "round_join", "census": "round_census",
+             "host splices": "round_splice", "pool in": "pool_in",
+             "pool out": "pool_out"}
+    parts = {name: st.get(f"meta/02extend.{key}", 0.0)
+             for name, key in names.items()}
+    wall = st.get("meta/02extend", 0.0)
+    split = ", ".join(f"{name} {t:.1f}" for name, t in parts.items())
+    return (f"{rows} rows into stage 02; its rounds indexed "
+            f"{c.get('meta/02extend.rounds_indexed', 0)}, device "
+            f"{c.get('meta/02extend.rounds_device', 0)} (whole run "
+            f"{c.get('meta/rounds_indexed', 0)} and "
+            f"{c.get('meta/rounds_device', 0)}); stage 02 {wall:.1f} s "
+            f"({split}, rest {wall - sum(parts.values()):.1f}), own peak "
+            f"{c.get('meta/02extend.peak_bytes', 0) / 2**30:.2f} GiB")
 
 
 def meta_phase(torch, cli, fq, rout, genome):
@@ -831,7 +914,8 @@ def meta_phase(torch, cli, fq, rout, genome):
                 if c in gstr or c in rc_str)
     say(f"phase 9 meta: {wall:.1f} s wall, peak device memory {peak:.2f} "
         f"GiB; {met['counters'].get('meta/extension_rounds')} extension "
-        f"rounds; contigs {stats['n_contigs']} (canonical), total "
+        f"rounds; {loop_report(met, os.path.join(rout, 'steps'))}; contigs "
+        f"{stats['n_contigs']} (canonical), total "
         f"{stats['total_bp']} bp = {share:.4f} x genome (redundancy), "
         f"longest {stats['longest']}, N50 {stats['n50']}, exact-match bp "
         f"{exact}; launches {json.dumps(got)}; stages_s "
@@ -840,6 +924,61 @@ def meta_phase(torch, cli, fq, rout, genome):
     if share < 0.95:
         raise SystemExit(f"meta contig total {stats['total_bp']} bp is "
                          f"{share:.4f} x the genome, under 0.95")
+    if met["counters"].get("meta/02extend.rounds_device", 0) < 1:
+        raise SystemExit("meta's stage 02 ran no round of the device loop")
+    return got, met, canonical_set(contigs)
+
+
+def indexed_phase(torch, cli, fq, rout, work, met9, set9):
+    """Phase 9i: phase 9's ``steps/`` up to ``01reduced`` in a fresh
+    -outfile, and ``meta`` there under ``REFLEXIV_INDEXED_ALWAYS=1``: it
+    resumes at stage 02 and runs the summary-indexed loop to the end. The
+    launch counts are set to 0 just before it; returns its launches."""
+    from reflexiv_tpu_torch.contigs import assembly_stats, canonical_set
+    from reflexiv_tpu_torch.kernels import extract, radix_sort
+
+    out = os.path.join(work, "meta_indexed")
+    steps = os.path.join(out, "steps")
+    os.makedirs(steps)
+    shutil.copytree(os.path.join(rout, "steps", "01reduced"),
+                    os.path.join(steps, "01reduced"))
+    shutil.copy(os.path.join(rout, "steps", "params.json"), steps)
+    zero_launches(extract, radix_sort)
+    os.environ["REFLEXIV_INDEXED_ALWAYS"] = "1"
+    try:
+        t0 = time.perf_counter()
+        rc = cli.main(["meta", "-fastq", fq, "-cover", "3", "-outfile", out,
+                       "-device", "cuda"])
+        wall = time.perf_counter() - t0
+    finally:
+        del os.environ["REFLEXIV_INDEXED_ALWAYS"]
+    got = path_launches()
+    if rc != 0:
+        raise SystemExit(f"meta under REFLEXIV_INDEXED_ALWAYS=1 exited {rc}")
+    with open(os.path.join(out, "metrics.json")) as fh:
+        met = json.load(fh)
+    st, c = met["stages_s"], met["counters"]
+    if "meta/01reduce" in st or "meta/02extend" not in st:
+        raise SystemExit(f"phase 9i did not resume at stage 02: {st}")
+    if c.get("meta/rounds_device", 0) or not c.get("meta/rounds_indexed"):
+        raise SystemExit(f"phase 9i left the indexed loop: {c}")
+    if not os.path.exists(os.path.join(out, "Assembly", "_SUCCESS")):
+        raise SystemExit("phase 9i left no Assembly/_SUCCESS")
+    contigs = contig_seqs(os.path.join(out, "Assembly", "part-00000"))
+    stats = assembly_stats(contigs)
+    share = stats["total_bp"] / GENOME_BP
+    same = canonical_set(contigs) == set9
+    say(f"phase 9i meta resumed at stage 02, REFLEXIV_INDEXED_ALWAYS=1: "
+        f"{wall:.1f} s wall; indexed {loop_report(met, steps)}; device "
+        f"(phase 9) {loop_report(met9, steps)}; contigs "
+        f"{stats['n_contigs']} (canonical), "
+        f"total {stats['total_bp']} bp = {share:.4f} x genome, N50 "
+        f"{stats['n50']}; canonical set equal to phase 9's: {same}; "
+        f"launches {json.dumps(got)}; stages_s {json.dumps(st)}")
+    if share < 0.95:
+        raise SystemExit(f"phase 9i contig total is {share:.4f} x the "
+                         "genome, under 0.95")
+    shutil.rmtree(out)
     return got
 
 
@@ -1007,9 +1146,11 @@ def phases_11_12(torch, args, dev, work, genome, launches) -> None:
         f"{bridged} of {N_PLANTED} thin stretches bridged; contigs "
         f"{st['n_contigs']} (canonical), total {st['total_bp']} bp = "
         f"{share:.4f} x genome, longest {st['longest']}, N50 {st['n50']}; "
-        f"mercy k-mers rescued {json.dumps(rescued)}; launches "
-        f"{json.dumps(got)}; stages_s {json.dumps(met['stages_s'])}; "
-        f"counters {json.dumps(met['counters'])}")
+        f"mercy k-mers rescued {json.dumps(rescued)}; "
+        f"{loop_report(met, os.path.join(out, 'steps'))}; "
+        f"launches {json.dumps(got)}; stages_s "
+        f"{json.dumps(met['stages_s'])}; counters "
+        f"{json.dumps(met['counters'])}")
     if n_links < 1 or n_runs < 1:
         raise SystemExit(f"meta -patch -scaffold: {n_links} links, {n_runs} "
                          "N runs; needs at least one of each")
@@ -1018,6 +1159,9 @@ def phases_11_12(torch, args, dev, work, genome, launches) -> None:
     if share < 0.95:
         raise SystemExit(f"meta contig total is {share:.4f} x the genome, "
                          "under 0.95")
+    if met["counters"].get("meta/02extend.rounds_device", 0) < 1:
+        raise SystemExit("meta -accurate's stage 02 ran no round of the "
+                         "device loop")
 
     # 11b. the two patching map forms on phase 11's contigs and pairs
     steps = os.path.join(out, "steps")

@@ -151,9 +151,11 @@ def _flat_blocks(pool: "pd.FlatPool"):
         yield from cut(lo, min(lo + BLOCK_ROWS, pool.n))
 
 
-def _write_flat_blocks(d: str, pool: "pd.FlatPool") -> int:
+def _write_flat_blocks(d: str, pool: "pd.FlatPool", limbs: int = 1) -> int:
+    """``pool`` as ``packed_v2`` blocks; ``meta.json`` gives the widest
+    block's limbs, or ``limbs`` when that is more (the row width of the
+    dense pool the JAX package would hold, which it reads back)."""
     os.makedirs(d, exist_ok=True)
-    limbs = 1
     for bi, (seq, length, subk, left, right) in enumerate(_flat_blocks(pool)):
         np.savez(os.path.join(d, f"block_{bi:05d}.npz"), seq=seq,
                  length=length, subk=subk, left=left, right=right,
@@ -248,10 +250,12 @@ def has_kset(workdir: str, name: str) -> bool:
     return has_success_marker(stage_dir(workdir, name))
 
 
-def save_loop_state(ckpt_dir: str, pool, parked: list, state: dict) -> None:
+def save_loop_state(ckpt_dir: str, pool, parked: list, state: dict,
+                    limbs: int = 1) -> None:
     """Checkpoint the extension loop mid-flight into a fresh ``it_<n>``
     dir whose ``_SUCCESS`` lands last; older round dirs go only after it is
-    complete, so a death mid-write leaves one valid resume point."""
+    complete, so a death mid-write leaves one valid resume point. A flat
+    pool is written as at least ``limbs`` limbs wide."""
     it = state["it"]
     d = os.path.join(ckpt_dir, f"it_{it:05d}")
     if os.path.exists(d):
@@ -259,7 +263,7 @@ def save_loop_state(ckpt_dir: str, pool, parked: list, state: dict) -> None:
     if isinstance(pool, list):
         _save_groups(os.path.join(d, "live"), pool, "g")
     elif isinstance(pool, pd.FlatPool):
-        _write_flat_blocks(os.path.join(d, "pool"), pool)
+        _write_flat_blocks(os.path.join(d, "pool"), pool, limbs)
     else:
         _write_pool_blocks(os.path.join(d, "pool"), pool)
     # a flat batch goes as consecutive blocks: the reader appends them in

@@ -5,8 +5,7 @@ Stages, each checkpointed under ``<out>/steps`` (:mod:`.checkpoint`):
   00 count + sort each k and 01 reduce the k ladder (:mod:`.dynamic`), or
      the ``Count_<k>_reduced`` tables a prior ``reduce`` left;
   02 mixed-k extension (``ReflexivDSDynamicKmerIteration``): rounds of the
-     summary join on the device (:mod:`.packed_dyn`) over a host-resident
-     ragged pool (:mod:`.dyn_pool`), to a fixpoint;
+     mixed-k join on the device (:mod:`.packed_dyn`), to a fixpoint;
   03 fixing (``ReflexivDSDynamicKmerFixing``): contig ends re-enter as
      fork-filtered 31-mers and the loop runs again;
   04 read-graph reassembly of fragment-scale contigs (:mod:`.reassemble`)
@@ -18,14 +17,32 @@ then, with ``-patch``/``-scaffold``, read-pair patching (:mod:`.patching`),
 whose link table goes to ``<out>/04Patching/links.tsv``. ``-accurate``
 counts each k of stage 00 through :func:`mercy.mercy_kmer_table`.
 
-On one card the loop is the JAX package's summary-indexed form
-(``REFLEXIV_INDEXED_ALWAYS=1``): one device call per round on all rows.
-Its hash buckets, slab tiers and prefetch thread existed for the TPU
-compiler and are not here; a bucket never split a group and kept pool
-order inside it, so one call makes the same joins. Under
-``REFLEXIV_INGEST_BUDGET_MB`` stage 00 counts every k it lacks in one
-streaming pass over the files (:func:`count.count_kmers_from_files_multi`);
-the reads are still loaded for stage 04, as in the JAX package.
+On one card the loop (:func:`run_dyn_extension`) takes the JAX package's
+forms by its rules off the TPU, which are the port's:
+  * stage 02 runs the device-pool form (:func:`device_rounds`): the pool
+    stays on the card as a :class:`packed_dyn.FlatPool`, each round is
+    :func:`packed_dyn.pdyn_extension_round_fused`, and the JAX pool's
+    capacity is carried as a number, since it sets the parking threshold;
+  * the faithful fixing passes (stage 03 for kmax >= 32, and the extend
+    pass) start from width-class groups, so they run one summary-indexed
+    round on the host pool and then hand the pool to the device form;
+  * the fast fixing (``fixing_rounds``, kmax < 32 or
+    ``REFLEXIV_FAST_FIXING=1``) runs the device form throughout;
+  * a pool over ``REFLEXIV_BUCKET_ROUND_ROWS`` live rows (default 12 << 20)
+    runs summary-indexed rounds until it falls under it, and
+    ``REFLEXIV_INDEXED_ALWAYS=1`` keeps every loop in that form (the JAX
+    package's TPU default): one device call per round on all rows. Its
+    hash buckets, slab tiers and prefetch thread existed for the TPU
+    compiler and are not here; a bucket never split a group and kept pool
+    order inside it, so one call makes the same joins.
+``metrics.json`` counts the rounds of each form (``meta/rounds_indexed``,
+``meta/rounds_device``) and times the loop's parts (``LOOP_TIMERS``), for
+the run and per stage (``meta/02extend.round_join`` and so on).
+
+Under ``REFLEXIV_INGEST_BUDGET_MB`` stage 00 counts every k it lacks in
+one streaming pass over the files
+(:func:`count.count_kmers_from_files_multi`); the reads are still loaded
+for stage 04, as in the JAX package.
 
 ``meta`` also takes a mesh (:func:`parallel.make_mesh`; the CLI meshes
 over every card for ``-device cuda`` when there are several), and then
@@ -78,6 +95,9 @@ log = logging.getLogger("reflexiv_tpu_torch")
 
 # round caps of the two faithful fixing passes (04Fixing, 05FixingAgain)
 FIXING_PASS_ROUNDS = (18, 30)
+# the extension loop's timers in metrics.json
+LOOP_TIMERS = ("meta/round_join", "meta/round_census", "meta/round_splice",
+               "meta/pool_in", "meta/pool_out")
 
 
 # ---------------------------------------------------------------------------
@@ -194,91 +214,287 @@ def pdyn_round_indexed_host(pool: RaggedPool, summ, round_seed: int, *,
     return new_pool, nsum, n_new, need_out
 
 
+def flat_group(p: pd.FlatPool, width: int = 0) -> tuple:
+    """A host flat pool as one group ``(seq, length, subk, left, right)``
+    ``width`` limbs wide, by default its longest row's limbs, as
+    ``packed_dyn.park_finished_pdyn`` keeps a parked batch."""
+    width = width or limbs_for(int(p.length.max()))
+    return (pd.to_dense(p, width).numpy().astype(np.uint32),
+            *(t.numpy() for t in p[1:]))
+
+
+def flat_groups(p: pd.FlatPool, limbs: int) -> List[tuple]:
+    """The width-class groups of a flat pool's rows held in a dense pool
+    ``limbs`` limbs wide (``RaggedPool.from_dense(...).to_groups()``): the
+    rows of at most ``min(W_DENSE, limbs)`` limbs by power-of-two limb
+    class, then the longer ones likewise; rows in order within a class."""
+    p = p.to("cpu")
+    wd = min(RaggedPool.W_DENSE, max(limbs, 1))
+    nl = np.maximum((p.length.numpy().astype(np.int64) + 15) // 16, 1)
+    cls = 2 ** np.ceil(np.log2(nl)).astype(np.int64)
+    over = p.length.numpy() > wd * 16
+    groups = []
+    for long_rows in (False, True):
+        for w in np.unique(cls[over == long_rows]).tolist():
+            sel = np.nonzero((over == long_rows) & (cls == w))[0]
+            groups.append(flat_group(pd.take(p, torch.from_numpy(sel)),
+                                     w if long_rows else min(w, wd)))
+    return groups
+
+
+def _flat_on(rows, device) -> pd.FlatPool:
+    """Host dense rows ``(seq, length, subk, left, right)`` as a flat pool
+    on ``device``, cut there."""
+    seq, *cols = rows
+    return pd.from_dense(_upload(seq, device),
+                         *(torch.from_numpy(np.ascontiguousarray(c))
+                           .to(device) for c in cols))
+
+
+class _LoopState:
+    """The extension loop's counters, parked batches and throttled
+    checkpoints (``REFLEXIV_CKPT_EVERY_S``, default 300 s), in the JAX
+    package's state format."""
+
+    def __init__(self, ckpt_dir, *, max_sub, stable, prev, need, parked):
+        self.ckpt_dir = ckpt_dir
+        self.max_sub, self.stable, self.prev, self.need = \
+            max_sub, stable, prev, need
+        self.parked = parked
+        self.every = float(os.environ.get("REFLEXIV_CKPT_EVERY_S", "300"))
+        self.last = time.time()
+
+    def step(self, n: int) -> None:
+        """Count a round that left ``n`` live rows."""
+        if n == self.prev:
+            self.stable += 1
+        else:
+            self.stable, self.prev = 0, n
+
+    def save(self, pool, it: int, limbs: int = 1) -> None:
+        """Save the state after round ``it`` when the throttle allows;
+        ``pool`` may be a callable, called only then."""
+        if not self.ckpt_dir or time.time() - self.last < self.every:
+            return
+        ckpt.save_loop_state(
+            self.ckpt_dir, pool() if callable(pool) else pool, self.parked,
+            {"it": it, "stable": self.stable, "prev": self.prev,
+             "need": self.need, "max_sub": self.max_sub}, limbs)
+        self.last = time.time()
+
+
 def run_dyn_extension(recs, params: Params, *, kmin: int, seed: int = 0,
                       unique_only: bool = False,
                       max_rounds: Optional[int] = None,
-                      ckpt_dir: Optional[str] = None, device) -> List[tuple]:
-    """Mixed-k rounds to a fixpoint (``dynamic.run_dyn_extension``, its
-    indexed branch; cf. ``Pipelines.java:856-952``). ``recs`` is a
-    width-class group list or a host pool (byte or packed). Returns the
-    live rows as width-class groups, then the parked groups.
+                      ckpt_dir: Optional[str] = None, device,
+                      return_groups: bool = False):
+    """Mixed-k rounds to a fixpoint on one card (``dynamic
+    .run_dyn_extension`` off the TPU; cf. ``Pipelines.java:856-952``).
+    ``recs`` is width-class groups or a host pool (byte or packed) whose
+    row count, dead rows too, is the JAX pool's capacity.
 
-    Stop rules: after ``min_iterations`` once the live count has been
-    stable for 12 rounds, or at ``max_rounds``. Every 4th round (``it % 4
-    == 3``) and on any stable round the census parks finished rows (more
-    than max(32, n / 16) of them, or all). With ``ckpt_dir`` the loop state
-    is saved every ``REFLEXIV_CKPT_EVERY_S`` seconds (default 300) and a
-    later call resumes from it."""
+    The loop takes the JAX package's forms by its rules:
+      * the summary-indexed form (:func:`pdyn_round_indexed_host`, the pool
+        on the host, log line "bucketed round N") while more than
+        ``REFLEXIV_BUCKET_ROUND_ROWS`` rows are live, for one round on
+        fresh groups, and to the end under ``REFLEXIV_INDEXED_ALWAYS=1``.
+        Every 4th round (``it % 4 == 3``) and on any stable round its
+        census parks the finished rows when there are more than max(32,
+        n / 16), or all of them;
+      * then the device-pool form (:func:`device_rounds`), the pool handed
+        over as ``groups_to_dense(rp.to_groups())`` on a capacity of
+        ``max(next_pow2(n), 16)`` rows, unless the indexed form reached its
+        fixpoint, parked every row or ran out of rounds.
+    Both stop after ``min_iterations`` once the live count has been stable
+    for 12 rounds, or at ``max_rounds``. With ``ckpt_dir`` the state is
+    saved in the JAX package's format (:class:`_LoopState`) and a later
+    call resumes from it; a resumed pool of at most
+    ``REFLEXIV_BUCKET_ROUND_ROWS`` rows goes to the device form at once,
+    re-padded to ``max(next_pow2(rows), 16)``.
+
+    Returns, with ``return_groups``, the live rows as width-class groups,
+    then each parked batch as one group (``dynamic._finish``); else one
+    all-live host :class:`PackedDynRecords`: the live rows, then the parked
+    ones (``packed_dyn.merge_parked_pdyn``'s order and width)."""
     max_rounds = max_rounds or params.max_iterations
-    ckpt_every = float(os.environ.get("REFLEXIV_CKPT_EVERY_S", "300"))
-    last_ckpt = time.time()
+    bucket_rows = int(os.environ.get("REFLEXIV_BUCKET_ROUND_ROWS",
+                                     str(12 << 20)))
+    indexed_always = os.environ.get("REFLEXIV_INDEXED_ALWAYS", "0") != "0"
     met = metrics.current()
 
     state0 = ckpt.load_loop_state(ckpt_dir) if ckpt_dir else None
+    fresh = state0 is None
     if state0 is not None:
         recs, parked, st = state0
-        max_sub, it0 = st["max_sub"], st["it"] + 1
-        stable, prev, need = st["stable"], st["prev"], st["need"]
+        it = st["it"] + 1
+        ls = _LoopState(ckpt_dir, parked=parked, **{
+            k: st[k] for k in ("max_sub", "stable", "prev", "need")})
         log.info("extension loop: resuming at round %d (%d live rows)",
-                 it0, prev)
+                 it, ls.prev)
+    elif isinstance(recs, list):
+        it = 1
+        ls = _LoopState(
+            ckpt_dir, parked=[], stable=0,
+            max_sub=max([int(g[2].max()) for g in recs if len(g[2])] or [1]),
+            prev=sum(len(g[1]) for g in recs),
+            need=2 * max([int(g[1].max()) for g in recs if len(g[1])]
+                         or [16]))
     else:
-        parked, it0, stable = [], 1, 0
-        if isinstance(recs, list):
-            max_sub = max([int(g[2].max()) for g in recs if len(g[2])]
-                          or [1])
-            prev = sum(len(g[1]) for g in recs)
-            need = 2 * max([int(g[1].max()) for g in recs if len(g[1])]
-                           or [16])
-        else:
-            live = recs.live
-            max_sub = int(np.where(live, recs.subk, 1).max())
-            prev = int(live.sum())
-            need = 2 * int(np.where(live, recs.length, 0).max())
-    if isinstance(recs, list):
-        rp = RaggedPool.from_groups(recs)
-    else:
+        it, live = 1, recs.live
+        ls = _LoopState(
+            ckpt_dir, parked=[], stable=0,
+            max_sub=int(np.where(live, recs.subk, 1).max()),
+            prev=int(live.sum()),
+            need=2 * int(np.where(live, recs.length, 0).max()))
+    groups = recs if isinstance(recs, list) else None
+    rows = None
+    if groups is None:
         p = recs if np.dtype(recs.seq.dtype) == np.uint32 \
             else from_dyn_host(recs)
         idx = np.nonzero(p.live)[0]
-        rp = RaggedPool.from_dense(tuple(a[idx] for a in p[:5]))
+        rows, limbs, cap = tuple(a[idx] for a in p[:5]), p.seq.shape[1], \
+            p.capacity
     del recs
-    summ = summaries_ragged(rp, max_sub)
 
-    for it in range(it0, max_rounds + 1):
-        rp, summ, n, need = pdyn_round_indexed_host(
-            rp, summ, seed + it, kmin=kmin, max_sub=max_sub,
-            unique_only=unique_only, need=need, device=device)
-        met.add("meta/rounds")
-        if n == prev:
-            stable += 1
-        else:
-            stable, prev = 0, n
-        log.info("extension round %d: %d live rows", it, n)
-        if n and (it % 4 == 3 or stable >= 1):
-            t0 = time.perf_counter()
-            fin = pd.finished_mask(
-                *(_upload(a, device) for a in (summ[0], summ[1], rp.subk)),
-                max_sub).cpu().numpy()
-            nf = int(fin.sum())
-            if nf == n or nf > max(32, n // 16):
-                parked.extend(rp.select(np.nonzero(fin)[0]).to_groups())
-                keep = np.nonzero(~fin)[0]
-                rp = rp.select(keep)
-                summ = tuple(a[keep] for a in summ)
-                prev = n = n - nf
-                log.info("census: parked %d, %d live", nf, n)
-            met.add_time("meta/round_census", time.perf_counter() - t0)
-        if ckpt_dir and time.time() - last_ckpt >= ckpt_every:
-            ckpt.save_loop_state(ckpt_dir, rp.to_groups(), parked, {
-                "it": it, "stable": stable, "prev": prev, "need": need,
-                "max_sub": max_sub})
-            last_ckpt = time.time()
-        if not n:
-            break   # every row parked: no later round can change anything
-        if it >= params.min_iterations and stable >= 12:
-            break
+    handoff = True   # to the device form; False: the host pool is final
+    if ls.prev > bucket_rows or indexed_always or \
+            (fresh and groups is not None):
+        t0 = time.perf_counter()
+        rp = RaggedPool.from_groups(groups) if groups is not None \
+            else RaggedPool.from_dense(rows)
+        rows = None
+        summ = summaries_ragged(rp, ls.max_sub)
+        met.add_time("meta/pool_in", time.perf_counter() - t0)
+        handoff = False
+        for it in range(it, max_rounds + 1):
+            rp, summ, n, ls.need = pdyn_round_indexed_host(
+                rp, summ, seed + it, kmin=kmin, max_sub=ls.max_sub,
+                unique_only=unique_only, need=ls.need, device=device)
+            met.add("meta/rounds")
+            met.add("meta/rounds_indexed")
+            ls.step(n)
+            log.info("bucketed round %d: %d live rows", it, n)
+            if n and (it % 4 == 3 or ls.stable >= 1):
+                t0 = time.perf_counter()
+                fin = pd.finished_mask(
+                    *(_upload(a, device) for a in (summ[0], summ[1],
+                                                   rp.subk)),
+                    ls.max_sub).cpu().numpy()
+                nf = int(fin.sum())
+                if nf == n or nf > max(32, n // 16):
+                    ls.parked.extend(
+                        rp.select(np.nonzero(fin)[0]).to_groups())
+                    keep = np.nonzero(~fin)[0]
+                    rp = rp.select(keep)
+                    summ = tuple(a[keep] for a in summ)
+                    ls.prev = n = n - nf
+                    log.info("bucketed census: parked %d, %d live", nf, n)
+                met.add_time("meta/round_census", time.perf_counter() - t0)
+            ls.save(rp.to_groups, it)
+            if ls.prev <= bucket_rows and not indexed_always:
+                # an empty pool (every row parked) changes no more
+                handoff = bool(n) and it < max_rounds
+                break
+            if not n or (it >= params.min_iterations and ls.stable >= 12):
+                break
+        it += 1
+        t0 = time.perf_counter()
+        groups = rp.to_groups()
+        del rp, summ
+        if not handoff and return_groups:
+            out = groups + [flat_group(b) if isinstance(b, pd.FlatPool)
+                            else b for b in ls.parked]
+            met.add_time("meta/pool_out", time.perf_counter() - t0)
+            return out
+        met.add_time("meta/pool_in", time.perf_counter() - t0)
+    t0 = time.perf_counter()
+    if rows is None:
+        # groups_to_dense: the groups' rows in turn, as wide as the widest
+        pool = pd.cat([_flat_on(g, device) for g in groups], device)
+        limbs = max([g[0].shape[1] for g in groups] or [1])
+        cap = max(next_pow2(pool.n), 16)
+    else:
+        pool = _flat_on(rows, device)
+        if not fresh:
+            cap = max(next_pow2(cap), 16)
+    met.add_time("meta/pool_in", time.perf_counter() - t0)
+    if handoff:
+        pool, limbs = device_rounds(
+            pool, params, ls, kmin=kmin, seed=seed, it=it,
+            max_rounds=max_rounds, cap=cap, limbs=limbs,
+            unique_only=unique_only)
     # the in-loop checkpoints stay until the caller has saved the result
-    return rp.to_groups() + parked
+    t0 = time.perf_counter()
+    if return_groups:
+        out = flat_groups(pool, limbs) + [
+            flat_group(b) if isinstance(b, pd.FlatPool) else b
+            for b in ls.parked]
+    else:
+        flat = pd.cat([pool] + [b if isinstance(b, pd.FlatPool)
+                                else pd.from_dense(*b) for b in ls.parked],
+                      "cpu")
+        width = max([limbs] + [
+            limbs_for(int(b.length.max())) if isinstance(b, pd.FlatPool)
+            else b[0].shape[1] for b in ls.parked])
+        out = PackedDynRecords(
+            pd.to_dense(flat, width).numpy().astype(np.uint32),
+            *(t.numpy() for t in flat[1:]), np.ones(flat.n, bool))
+    met.add_time("meta/pool_out", time.perf_counter() - t0)
+    return out
+
+
+def device_rounds(pool: pd.FlatPool, params: Params, ls: _LoopState, *,
+                  kmin: int, seed: int, it: int, max_rounds: int, cap: int,
+                  limbs: int, unique_only: bool = False):
+    """The device-pool form of the one-card loop (``dynamic
+    .run_dyn_extension``'s device loop, ``:899-928``) from round ``it``:
+    :func:`packed_dyn.pdyn_extension_round_fused` on a pool that stays on
+    its device. ``cap`` and ``limbs`` are the rows and row width of the
+    dense pool the JAX package would hold, dead rows too: before each round
+    ``compact_grow_pdyn``'s rule shrinks ``cap`` to ``max(next_pow2(live),
+    16)`` once at most a quarter of it is live (and over 64) and widens
+    ``limbs`` to the next power of two that holds ``need``. The exact
+    census runs when the live count has been stable for a multiple of 3
+    rounds and stops the loop when every row is finished; the loop also
+    stops after ``min_iterations`` once stable for 12 rounds. Every 8th
+    round it parks the finished rows as one host batch when there are more
+    than ``max(32, cap / 8)``. Returns the pool (live rows in the JAX
+    pool's order) and ``limbs``."""
+    met = metrics.current()
+
+    def census():
+        t0 = time.perf_counter()
+        fin = pd.finished_mask_pdyn_exact(pool, ls.max_sub)
+        met.add_time("meta/round_census", time.perf_counter() - t0)
+        return fin
+
+    for it in range(it, max_rounds + 1):
+        if ls.prev <= cap // 4 and cap > 64:
+            cap = max(next_pow2(ls.prev), 16)
+        limbs = max(next_pow2(limbs_for(ls.need)), limbs)
+        t0 = time.perf_counter()
+        pool, n, ls.need = pd.pdyn_extension_round_fused(
+            pool, seed + it, kmin=kmin, max_sub=ls.max_sub,
+            unique_only=unique_only)
+        met.add_time("meta/round_join", time.perf_counter() - t0)
+        met.add("meta/rounds")
+        met.add("meta/rounds_device")
+        ls.step(n)
+        log.info("extension round %d: %d live rows", it, n)
+        if ls.stable >= 3 and ls.stable % 3 == 0 \
+                and int(census().sum()) == n:
+            break
+        if it >= params.min_iterations and ls.stable >= 12:
+            break
+        if it % 8 == 0 and it >= 8:
+            fin = census()
+            n_fin = int(fin.sum())
+            if n_fin > max(32, cap // 8):
+                pool = pd.park_finished_pdyn(pool, fin, ls.parked)
+                ls.prev = n - n_fin
+                log.info("census: parked %d, %d live", n_fin, ls.prev)
+        ls.save(pool, it, limbs)
+    return pool, limbs
 
 
 # ---------------------------------------------------------------------------
@@ -554,10 +770,15 @@ def fixing_rounds_faithful(pool, params: Params, *, kmax: int,
     :func:`run_dyn_extension` on ``device``); with one it is the dense
     form, a flat pool (:func:`fixing_split_flat`,
     :func:`run_dyn_extension_mesh`). ``ckpt_ns`` saves each finished
-    pass."""
+    pass. Without a mesh ``device`` is required, as everywhere in the
+    port: nothing picks the CPU in its place."""
     if mesh is not None:
         pool = as_flat(pool)
         device = mesh.devices[0]
+    elif device is None:
+        raise ValueError("fixing_rounds_faithful needs a device or a mesh")
+    else:
+        device = resolve_device(device)
     for pass_i, n_rounds in enumerate(FIXING_PASS_ROUNDS):
         if ckpt_ns:
             done_dir = f"{ckpt_ns}_p{pass_i}_done"
@@ -585,7 +806,7 @@ def fixing_rounds_faithful(pool, params: Params, *, kmax: int,
             limbs, *cols = (t.cpu().numpy() for t in ends)
             pool = run_dyn_extension(
                 [(limbs.astype(np.uint32), *cols)] + parts, fix_params,
-                device=device, **loop_args)
+                device=device, return_groups=True, **loop_args)
         else:
             pool = run_dyn_extension_mesh(
                 pd.cat([pd.from_dense(*ends), *parts], "cpu"), fix_params,
@@ -603,19 +824,17 @@ def fixing_rounds(pool, params: Params, *, kfix: int = 31, seed: int = 1000,
     at least kfix bases gets ``subk = kfix - 1`` and free ends, and the
     loop joins only groups of one forward and one reflected row, for at
     most 48 rounds. Returns a byte pool: the loop's live rows, then its
-    parked rows."""
+    parked rows, as wide as the JAX pool would be (``return_packed``, then
+    ``to_dyn_host``)."""
     sub = np.minimum(np.int32(kfix - 1), pool.length - 1)
     eligible = pool.live & (pool.length >= kfix)
     pool = pool._replace(
         subk=np.where(eligible, sub, pool.subk).astype(np.int32),
         left=np.where(eligible, -1, pool.left).astype(np.int32),
         right=np.where(eligible, -1, pool.right).astype(np.int32))
-    groups = run_dyn_extension(
+    return to_dyn_host(run_dyn_extension(
         pool, params, kmin=kfix, seed=seed, unique_only=True, max_rounds=48,
-        ckpt_dir=f"{ckpt_ns}_fast" if ckpt_ns else None, device=device)
-    dense = groups_to_dense(groups)
-    return to_dyn_host(PackedDynRecords(*dense, np.ones(len(dense[1]),
-                                                        bool)))
+        ckpt_dir=f"{ckpt_ns}_fast" if ckpt_ns else None, device=device))
 
 
 def fixing_split_flat(pool: pd.FlatPool, kmax: int, kfix: int = 31):
@@ -742,15 +961,19 @@ def dedup_contigs(contigs: List[str], seed_k: int = 31) -> List[str]:
 # ---------------------------------------------------------------------------
 
 def records_from_sorted(sets: Sequence[Tuple]) -> PackedDynRecords:
-    """Per-k (bases, left, right, k) sets -> one all-live packed host pool
+    """Per-k (bases, left, right, k) sets -> one packed host pool
     (``dynamic.records_from_sorted``): the same rows, each k packed on its
     own, so the byte matrix of every row at the widest width never exists.
     Rows are ``limbs_for(next_pow2(2 * kmax))`` limbs wide, as the JAX
-    pool's are once packed."""
+    pool's are once packed, and the pool has the JAX pool's
+    ``max(next_pow2(total), 16)`` rows, the dead ones after the live (the
+    capacity that sets the device loop's parking threshold)."""
     total = sum(len(b) for b, _, _, _ in sets)
     kmax = max(k for _, _, _, k in sets)
-    seq = np.zeros((total, limbs_for(next_pow2(2 * kmax))), np.uint32)
-    cols = [np.empty(total, np.int32) for _ in range(4)]
+    cap = max(next_pow2(total), 16)
+    seq = np.zeros((cap, limbs_for(next_pow2(2 * kmax))), np.uint32)
+    cols = [np.zeros(cap, np.int32) for _ in range(4)]
+    cols[1][total:] = 1
     at = 0
     for bases, l, r, k in sets:
         n = len(bases)
@@ -759,7 +982,7 @@ def records_from_sorted(sets: Sequence[Tuple]) -> PackedDynRecords:
         for c, v in zip(cols, (k, k - 1, l, r)):
             c[at:at + n] = v
         at += n
-    return PackedDynRecords(seq, *cols, np.ones(total, bool))
+    return PackedDynRecords(seq, *cols, np.arange(cap) < total)
 
 
 def _pool_to_sets(pool, klist):
@@ -853,10 +1076,21 @@ def assemble_dynamic(bases, lengths, params: Params, *, seed: int = 0,
     devices = {device, *(mesh.devices if mesh is not None else ())}
     cards = [d for d in devices if d.type == "cuda"]
 
+    # the loops' timers and round counts run on over stages 02, 03 and 05;
+    # each stage's share goes under <stage>.<name>
+    loop_keys = [(met.timers, k) for k in LOOP_TIMERS] \
+        + [(met.counts, k) for k in ("meta/rounds_indexed",
+                                     "meta/rounds_device")]
+    seen = {k: store.get(k, 0) for store, k in loop_keys}
+
     def lap(name):
         for dev in devices:
             synchronize(dev)
         met.lap(name)
+        for store, k in loop_keys:
+            if store.get(k, 0) != seen[k]:
+                store[f"{name}.{k.split('/')[1]}"] = store[k] - seen[k]
+                seen[k] = store[k]
         if cards:
             # the stage's own peak on any card; the counters restart for
             # the next stage, and meta/peak_bytes keeps the run's highest
@@ -984,7 +1218,8 @@ def assemble_dynamic(bases, lengths, params: Params, *, seed: int = 0,
                                           ckpt_dir=ckpt_dir, mesh=mesh)
         else:
             pool = run_dyn_extension(pool, params, kmin=kmin, seed=seed,
-                                     ckpt_dir=ckpt_dir, device=device)
+                                     ckpt_dir=ckpt_dir, device=device,
+                                     return_groups=True)
         met.set("meta/extension_rounds",
                 met.counts.get("meta/rounds", 0) - rounds0)
         if workdir:

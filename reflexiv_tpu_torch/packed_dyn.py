@@ -17,9 +17,10 @@ Where the JAX round broadcasts the partners' fields with segmented scans
 (``join_core.segmented_fill``, a TPU workaround), this one gathers them at
 per-group positions.
 
-The mesh loop's pool is the dense form (``packed_dyn.PackedDynRecords``,
-``_pdyn_round_impl``) held as a :class:`FlatPool`: the live rows only, in
-pool order, each in its own ``limbs_for(length)`` limbs, back to back.
+The device-pool loops (one card's and the mesh's) hold the dense form
+(``packed_dyn.PackedDynRecords``, ``_pdyn_round_impl``) as a
+:class:`FlatPool`: the live rows only, in pool order, each in its own
+``limbs_for(length)`` limbs, back to back.
 A row's width changes no result, so a megabase contig costs its own
 limbs and not the widest row's times every row, as the JAX pool's does.
 :func:`pdyn_extension_round_fused` is the JAX lexsort round on it: the
@@ -208,7 +209,7 @@ def pdyn_round_indexed(
 
 
 # ---------------------------------------------------------------------------
-# the dense pool of the mesh loop
+# the dense pool of the device-pool loops
 # ---------------------------------------------------------------------------
 
 class FlatPool(NamedTuple):

@@ -1,10 +1,11 @@
 """Parity: the port's ``meta`` against ``reflexiv_tpu.dynamic``.
 
 Whole assemblies, fixing, end extension, dedup, the CLI and the stage
-checkpoints, on the same seeded inputs through both packages. The JAX
-package runs its summary-indexed loop (``REFLEXIV_INDEXED_ALWAYS=1``, its
-TPU default), the loop form the port has. Exact: contig lists are equal,
-headers and order included, and files byte for byte."""
+checkpoints, on the same seeded inputs through both packages. Both run
+the summary-indexed loop (``REFLEXIV_INDEXED_ALWAYS=1``, the JAX package's
+TPU default; ``test_torch_meta_device_loop.py`` holds the default loop).
+Exact: contig lists are equal, headers and order included, and files byte
+for byte."""
 import os
 import random
 import shutil

@@ -311,8 +311,8 @@ def budget_inputs(tmp_path_factory):
 
 
 def _budget_run(argv, root, monkeypatch):
-    """Both CLIs under a 1 MB budget (the JAX package's indexed loop, the
-    form the port has); returns the port's metrics."""
+    """Both CLIs under a 1 MB budget (both packages in the indexed loop);
+    returns the port's metrics."""
     monkeypatch.setenv("REFLEXIV_INGEST_BUDGET_MB", "1")
     monkeypatch.setenv("REFLEXIV_INDEXED_ALWAYS", "1")
     run_both(argv, root, monkeypatch)     # undoes the patches
