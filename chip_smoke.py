@@ -168,12 +168,29 @@ script. Phases, one line each:
      against plain path, identical ``Assembly/`` trees; (c) under
      ``--mesh-walls`` on a machine with four or more cards, ``meta`` on a
      mesh of four cards byte-identical to 4 virtual shards of ``cuda:0``
-     (on one card a line says it did not run).
+     (on one card a line says it did not run);
+  20. the process mesh (``reflexiv_tpu_torch.distributed``): (a) 2 gloo
+     processes of 2 shards of ``cuda:0`` each (this script run with
+     ``--mesh-child``) on phase 4's FASTQ, each feeding its block of the
+     read matrix: ``count_kmers_sharded`` at k = 31 and 61, the fork
+     records, one packed round and its census, and one mixed-k round on
+     the fork records, every output equal shard for shard (sha256 of
+     each shard's bytes) to one process over 4 shards of ``cuda:0``;
+     extraction and the sort launched in every child (their launches
+     join the kernels' line), and in child 0 equal to their plain
+     versions on its counting passes; the k = 31 count's wall and its
+     exchange time, each child's peak device memory; (b) under
+     ``--mesh-walls`` on two or more cards: one NCCL process a card at 2
+     and 4 processes, equal to one process over the same cards, then
+     ``python -m reflexiv_tpu_torch.multihost_count``'s Mkmers/s at 1, 2
+     and 4 processes against one process's ``count_kmers_sharded`` over
+     the same cards, in turns (on one card a line says it did not run).
+     A child that fails or outlives its 240 s fails the phase.
 
 The script is written for one card: on a machine with several, ``run
 -device cuda`` meshes over all of them, so phases 4-17 would take the
-mesh. There ``--mesh-walls`` runs phase 1's build, phase 4's input, 18c
-and 19c alone.
+mesh. There ``--mesh-walls`` runs phase 1's build, phase 4's input, 18c,
+19c and 20b alone.
 
 Phases 2 and 3 also hold the W-word extraction and row sort (k = 61, 81
 and 95: W = 2, 3 and 4 words) to their plain versions on the main path's
@@ -358,9 +375,12 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--mesh-walls", action="store_true",
-                    help="only phases 18c and 19c: run on one card and on a "
-                         "mesh over every card, in turns; meta on four "
-                         "cards against four shards of one")
+                    help="only phases 18c, 19c and 20b: run on one card and "
+                         "on a mesh over every card, in turns; meta on four "
+                         "cards against four shards of one; one process "
+                         "per card over NCCL against one process over the "
+                         "same cards")
+    ap.add_argument("--mesh-child", default=None, help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
     t_start = time.perf_counter()
 
@@ -379,6 +399,8 @@ def main(argv=None) -> int:
         print(f"chip_smoke: the reflexiv_tpu_torch package is not beside "
               f"this script ({e})", file=sys.stderr)
         return 1
+    if args.mesh_child:
+        return mesh_child(torch, json.loads(args.mesh_child))
     if args.mesh_walls:
         return mesh_walls_only(torch, args)
     dev = torch.device("cuda:0")
@@ -526,6 +548,8 @@ def main(argv=None) -> int:
         clock("18")
         phase_19(torch, args, work, fq, genome, launches)
         clock("19")
+        phase_20(torch, work, fq, launches, rows)
+        clock("20")
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
@@ -2115,7 +2139,7 @@ def phase_18(torch, args, work, fq, rounds4, launches, rows) -> None:
     # each shard's counting pass, kernel against plain, then the tables
     mat, lens = cli._load_read_matrix(params)
     errs = {"extract": 0, "sort": 0}
-    passes = parallel.shard_passes(mat.shape[0], mat.shape[1], 31, mesh)
+    passes = parallel.shard_passes(mat, 31, mesh)
     for lo, hi in (r for ranges in passes for r in ranges if r[1] > r[0]):
         b = torch.from_numpy(mat[lo:hi]).to(dev, torch.uint8)
         ln = torch.from_numpy(lens[lo:hi]).to(dev, torch.int32)
@@ -2374,6 +2398,309 @@ def phase_19(torch, args, work, fq, genome, launches) -> None:
         f"{torch.cuda.device_count()})")
 
 
+# ---------------------------------------------------------------------------
+# phase 20: the process mesh, one process per card or several on one
+# ---------------------------------------------------------------------------
+
+MESH_PROCS, MESH_LOCAL = 2, 2     # 20a: gloo processes x shards of cuda:0
+MESH_CHILD_TIMEOUT = 240          # seconds a child, and each collective
+
+
+def digests(outputs: dict) -> dict:
+    """Each output's shards as short sha256 digests of their bytes, with
+    shape and dtype: equal digests are equal tensors."""
+    import hashlib
+
+    return {name: [hashlib.sha256(t.contiguous().cpu().numpy().tobytes())
+                   .hexdigest()[:32] + f"{tuple(t.shape)}{t.dtype}"
+                   for t in ts]
+            for name, ts in outputs.items()}
+
+
+def slice_digests(torch, mat, lens, mesh) -> dict:
+    """The digests of :func:`multiprocess_smoke.slice_outputs` at k = 31
+    (``-cover 3``) and of the k = 61 tables, on ``mesh``."""
+    from reflexiv_tpu_torch import parallel
+    from reflexiv_tpu_torch.multiprocess_smoke import slice_outputs
+    from reflexiv_tpu_torch.params import Params
+
+    params = Params(k=31, min_kmer_coverage=3)
+    got = digests(slice_outputs(
+        mat, lens, k=31, min_cov=3, min_error=params.min_error_coverage,
+        mesh=mesh))
+    tables = parallel.count_kmers_sharded(mat, lens, k=61, min_cov=3,
+                                          mesh=mesh)
+    got.update(digests({"k61.keys": [t for t, _ in tables],
+                        "k61.counts": [c for _, c in tables]}))
+    return got
+
+
+def mesh_child(torch, spec: dict) -> int:
+    """One process of phase 20's process mesh (``spec``: rank, procs,
+    backend, local devices, init URL, FASTQ). It counts its block of the
+    FASTQ's reads at k = 31 (timed, with the time in the mesh's exchanges
+    and gathers measured apart), then runs :func:`slice_digests` with the
+    launch counts set to 0 just before, and prints one ``mesh-child`` JSON
+    line: digests by global shard, launches, walls, peak device memory.
+    Rank 0 then holds extraction and the sort to their plain versions on
+    its counting passes."""
+    from reflexiv_tpu_torch import parallel
+    from reflexiv_tpu_torch.distributed import init_process_mesh
+    from reflexiv_tpu_torch.io import load_reads
+    from reflexiv_tpu_torch.kernels import extract, radix_sort
+    from reflexiv_tpu_torch.multiprocess_smoke import block
+
+    from reflexiv_tpu_torch.device import synchronize
+
+    rank, procs = spec["rank"], spec["procs"]
+    mesh = init_process_mesh(
+        backend=spec["backend"], init_method=spec["init"],
+        world_size=procs, rank=rank, local_devices=spec["devices"],
+        timeout_s=MESH_CHILD_TIMEOUT)
+    dev = mesh.devices[0]
+    spent = [0.0]
+
+    def timed(fn):
+        def run(*a, **kw):
+            synchronize(dev)
+            t0 = time.perf_counter()
+            out = fn(*a, **kw)
+            synchronize(dev)
+            spent[0] += time.perf_counter() - t0
+            return out
+        return run
+
+    mat, lens = load_reads(spec["fastq"])
+    windows = int(np.maximum(lens.astype(np.int64) - 30, 0).sum())
+    b, ln = (block(a, rank, procs, mesh.size) for a in (mat, lens))
+    del mat, lens
+    for name in ("exchange", "size_table", "allgather_ints"):
+        setattr(mesh, name, timed(getattr(mesh, name)))
+    torch.cuda.reset_peak_memory_stats(dev)
+    zero_launches(extract, radix_sort)
+    walls = []
+    for _ in range(2):                # the first warms the allocator
+        mesh.allgather_ints([0])      # every process starts together
+        spent[0] = 0.0
+        t0 = time.perf_counter()
+        tables = parallel.count_kmers_sharded(b, ln, k=31, min_cov=3,
+                                              mesh=mesh)
+        synchronize(dev)
+        walls.append((time.perf_counter() - t0, spent[0]))
+        del tables
+    zero_launches(extract, radix_sort)
+    t0 = time.perf_counter()
+    got = slice_digests(torch, b, ln, mesh)
+    synchronize(dev)
+    slice_s = time.perf_counter() - t0
+    path = {name: n for name, n in path_launches().items() if n}
+    peak = torch.cuda.max_memory_allocated(dev)
+    errs = None
+    passes = parallel.shard_passes(b, 31, mesh)    # a collective: every rank
+    if rank == 0:
+        errs = {"extract": 0, "sort": 0, "passes": 0}
+        for ranges in passes:
+            for lo, hi in (r for r in ranges if r[1] > r[0]):
+                bb = torch.from_numpy(b[lo:hi]).to(dev)
+                ll = torch.from_numpy(ln[lo:hi]).to(dev)
+                keys = extract.extract_canonical_keys(bb, ll, k=31)
+                exact_err("phase 20 extract", keys,
+                          extract.extract_canonical_keys_torch(bb, ll, k=31))
+                exact_err("phase 20 sort", radix_sort.sort_keys(keys, bits=62),
+                          radix_sort.sort_keys_torch(keys))
+                errs["passes"] += 1
+    print("mesh-child " + json.dumps({
+        "rank": rank, "first": mesh.first, "digests": got,
+        "launches": path, "count_s": walls[-1][0],
+        "count_exchange_s": walls[-1][1], "slice_s": slice_s,
+        "peak": peak, "windows": windows, "transport": str(mesh.transport),
+        "errs": errs}), flush=True)
+    mesh.close()
+    return 0
+
+
+def run_mesh(torch, work, fq, procs, local, backend):
+    """Phase 20's children over ``procs`` processes of ``local`` shards:
+    their ``mesh-child`` records by rank, and the wall of the whole run."""
+    from reflexiv_tpu_torch.multiprocess_smoke import run_children
+
+    store = os.path.join(work, f"store_{backend}_{procs}")
+    shutil.rmtree(store, ignore_errors=True)
+    argvs = [[sys.executable, os.path.abspath(__file__), "--mesh-child",
+              json.dumps({"rank": r, "procs": procs, "backend": backend,
+                          "devices": [f"cuda:{0 if backend == 'gloo' else r}"]
+                          * local,
+                          "init": "file://" + store, "fastq": fq})]
+             for r in range(procs)]
+    t0 = time.perf_counter()
+    try:
+        outs = run_children(argvs, timeout_s=MESH_CHILD_TIMEOUT)
+    except RuntimeError as e:
+        raise SystemExit(f"phase 20 ({backend}, {procs} processes): {e}")
+    wall = time.perf_counter() - t0
+    recs = []
+    for out in outs:
+        line = [x for x in out.splitlines() if x.startswith("mesh-child ")]
+        if not line:
+            raise SystemExit(f"phase 20: a child printed no record:\n"
+                             f"{out[-3000:]}")
+        recs.append(json.loads(line[-1][len("mesh-child "):]))
+    return recs, wall
+
+
+def compare_mesh(label, recs, want) -> None:
+    """Every output of the children, shard for shard by global index,
+    equal to ``want`` (the single-controller mesh's digests)."""
+    for name, shards in want.items():
+        got = [None] * len(shards)
+        for rec in recs:
+            for i, d in enumerate(rec["digests"][name]):
+                got[rec["first"] + i] = d
+        if got != shards:
+            bad = [g for g, (a, b) in enumerate(zip(got, shards)) if a != b]
+            raise SystemExit(f"{label}: {name} differs from the "
+                             f"single-controller mesh on shards {bad}")
+
+
+def phase_20(torch, work, fq, launches, rows) -> None:
+    """20a: :data:`MESH_PROCS` gloo processes of :data:`MESH_LOCAL` shards
+    of ``cuda:0`` (:func:`mesh_child`) on phase 4's FASTQ, every output of
+    :func:`slice_digests` equal shard for shard to one process over
+    ``MESH_PROCS * MESH_LOCAL`` shards of ``cuda:0``; extraction and the
+    sort launched in every child, and in child 0 equal to their plain
+    versions on its counting passes. The children's launches join the
+    kernels' line. 20b runs under ``--mesh-walls`` on several cards."""
+    from reflexiv_tpu_torch import parallel
+    from reflexiv_tpu_torch.io import load_reads
+
+    t0 = time.perf_counter()
+    recs, child_wall = run_mesh(torch, work, fq, MESH_PROCS, MESH_LOCAL,
+                                "gloo")
+    dev = torch.device("cuda", 0)
+    mesh = parallel.make_mesh([dev] * (MESH_PROCS * MESH_LOCAL))
+    mat, lens = load_reads(fq)
+    walls = []
+    for _ in range(2):
+        t1 = time.perf_counter()
+        tables = parallel.count_kmers_sharded(mat, lens, k=31, min_cov=3,
+                                              mesh=mesh)
+        torch.cuda.synchronize(dev)
+        walls.append(time.perf_counter() - t1)
+        del tables
+    want = slice_digests(torch, mat, lens, mesh)
+    del mat, lens
+    torch.cuda.empty_cache()
+    compare_mesh("phase 20a", recs, want)
+    for rec in recs:
+        short = [n for n in ("extract", "sort", "extract_rows2", "sort_rows2")
+                 if not rec["launches"].get(n)]
+        if short:
+            raise SystemExit(f"phase 20a: child {rec['rank']} launched no "
+                             f"{short}: {rec['launches']}")
+        for name, n in rec["launches"].items():
+            launches[name] = launches.get(name, 0) + n
+    errs = recs[0]["errs"]
+    if not errs["passes"]:
+        raise SystemExit("phase 20a: child 0 held no counting pass to the "
+                         "plain versions")
+    for key in ("extract", "sort"):
+        e, ms, pms = rows[key]
+        rows[key] = (max(e, errs[key]), ms, pms)
+    count_s = max(r["count_s"] for r in recs)
+    say(f"phase 20a {MESH_PROCS} gloo processes x {MESH_LOCAL} shards of "
+        f"cuda:0 on phase 4's reads: every output equal shard for shard to "
+        f"one process over {mesh.size} shards ({len(want)} outputs: count "
+        f"k=31 and k=61, fork records, a round, the census, a mixed-k "
+        f"round); the children's run {child_wall:.1f} s; count k=31 "
+        f"{count_s:.3f} s = {recs[0]['windows'] / count_s / 1e6:.1f} "
+        f"Mkmers/s, of it exchange and gathers "
+        f"{json.dumps([round(r['count_exchange_s'], 3) for r in recs])} s "
+        f"(one process: {walls[-1]:.3f} s = "
+        f"{recs[0]['windows'] / walls[-1] / 1e6:.1f} Mkmers/s); the rest "
+        f"of the slice {json.dumps([round(r['slice_s'], 1) for r in recs])}"
+        f" s; peak device memory a child "
+        f"{json.dumps([round(r['peak'] / 2**30, 2) for r in recs])} GiB; "
+        f"launches {json.dumps([r['launches'] for r in recs])}; gloo "
+        f"transport: card tensors ({recs[0]['transport']}); child 0's "
+        f"{errs['passes']} counting pass(es) kernel == plain; phase wall "
+        f"{time.perf_counter() - t0:.1f} s")
+    say(f"phase 20b did not run: it runs under --mesh-walls on a machine "
+        f"with two or more cards (this one has "
+        f"{torch.cuda.device_count()})")
+
+
+def multihost_rate(work, fq, procs) -> float:
+    """``multihost_count`` over ``procs`` NCCL processes, one a card: the
+    Mkmers/s it prints."""
+    from reflexiv_tpu_torch.multiprocess_smoke import run_children
+
+    store = os.path.join(work, f"store_count_{procs}")
+    shutil.rmtree(store, ignore_errors=True)
+    argv = [sys.executable, "-m", "reflexiv_tpu_torch.multihost_count",
+            "--fastq", fq, "--k", "31", "--min-cov", "3", "--backend",
+            "nccl", "--coordinator", "file://" + store, "--num-hosts",
+            str(procs)]
+    try:
+        outs = run_children([argv + ["-device", f"cuda:{r}", "--host-id",
+                                     str(r)] for r in range(procs)],
+                            timeout_s=MESH_CHILD_TIMEOUT)
+    except RuntimeError as e:
+        raise SystemExit(f"phase 20b multihost_count x {procs}: {e}")
+    m = re.search(r"counting: ([0-9.]+) Mkmers/s", outs[0])
+    if not m:
+        raise SystemExit(f"phase 20b: multihost_count printed no rate:\n"
+                         f"{outs[0][-2000:]}")
+    return float(m.group(1))
+
+
+def process_mesh_cards(torch, work, fq) -> None:
+    """20b: one NCCL process per card at 2 and 4 processes, every output
+    of :func:`slice_digests` equal to one process over the same cards;
+    then ``multihost_count``'s Mkmers/s at 1, 2 and 4 processes and one
+    process's ``count_kmers_sharded`` over the same cards, in turns
+    (processes, one, one, processes)."""
+    from reflexiv_tpu_torch import parallel
+    from reflexiv_tpu_torch.io import load_reads
+
+    cards = torch.cuda.device_count()
+    mat, lens = load_reads(fq)
+    windows = int(np.maximum(lens.astype(np.int64) - 30, 0).sum())
+    for procs in (p for p in (2, 4) if p <= cards):
+        recs, wall = run_mesh(torch, work, fq, procs, 1, "nccl")
+        mesh = parallel.make_mesh([torch.device("cuda", i)
+                                   for i in range(procs)])
+        compare_mesh(f"phase 20b ({procs} cards)", recs,
+                     slice_digests(torch, mat, lens, mesh))
+        say(f"phase 20b {procs} NCCL processes, one a card: every output "
+            f"equal shard for shard to one process over the same cards; "
+            f"children's run {wall:.1f} s; count k=31 "
+            f"{max(r['count_s'] for r in recs):.3f} s, of it exchange and "
+            f"gathers "
+            f"{json.dumps([round(r['count_exchange_s'], 3) for r in recs])}"
+            f" s; peak a child "
+            f"{json.dumps([round(r['peak'] / 2**30, 2) for r in recs])} GiB")
+
+    def one_process(procs) -> float:
+        mesh = parallel.make_mesh([torch.device("cuda", i)
+                                   for i in range(procs)])
+        parallel.count_kmers_sharded(mat, lens, k=31, min_cov=3, mesh=mesh)
+        t0 = time.perf_counter()
+        for _ in range(3):
+            parallel.count_kmers_sharded(mat, lens, k=31, min_cov=3,
+                                         mesh=mesh)
+            for d in mesh.devices:
+                torch.cuda.synchronize(d)
+        return windows / ((time.perf_counter() - t0) / 3) / 1e6
+
+    for procs in (p for p in (1, 2, 4) if p <= cards):
+        rates = [multihost_rate(work, fq, procs), one_process(procs),
+                 one_process(procs), multihost_rate(work, fq, procs)]
+        say(f"phase 20b count k=31 over {procs} card(s), Mkmers/s: "
+            f"multihost_count ({procs} NCCL processes) {rates[0]:.1f} / "
+            f"{rates[3]:.1f}; one process over the same cards "
+            f"{rates[1]:.1f} / {rates[2]:.1f}")
+
+
 def mesh_meta_cards(torch, work, fq) -> None:
     """19c: ``meta`` on phase 4's FASTQ on a mesh of the first
     :data:`MESH_SHARDS` cards (the CLI's own ``-device cuda`` mesh where
@@ -2435,6 +2762,7 @@ def mesh_walls_only(torch, args) -> int:
         mesh_walls(torch, work, fq)
         if torch.cuda.device_count() >= MESH_SHARDS:
             mesh_meta_cards(torch, work, fq)
+        process_mesh_cards(torch, work, fq)
     finally:
         shutil.rmtree(work, ignore_errors=True)
     return 0

@@ -2,9 +2,21 @@
 
 A mesh is an ordered list of devices, repeats allowed: ``[cuda:0] * 4`` or
 ``[cpu] * 8`` is a mesh of virtual shards, as XLA's forced host device
-count is for the JAX package. One process drives every shard, as the JAX
-package's ``shard_map`` over its local devices does. A sharded value is a
-list with one tensor (or record set) per shard, each on its shard's device.
+count is for the JAX package. In a :class:`Mesh` one process drives every
+shard, as the JAX package's ``shard_map`` over its local devices does. A
+sharded value is a list with one tensor (or record set) per shard, each on
+its shard's device.
+
+A :class:`distributed.ProcessMesh` spreads the shards over processes (one
+per card, or several local shards each), as ``jax.distributed`` does: the
+functions below that the JAX package runs on global arrays (counting, the
+fork passes, the packed round and census, the mercy table, the mixed-k
+round) then take this process's block and return its local shards, and
+the exchange runs over ``torch.distributed.all_to_all_single``. Both
+meshes give the same rows shard for shard. The whole-run functions
+(:func:`assemble_reads_sharded`, :func:`extension_loop_sharded`,
+:func:`finished_mask_pdyn_sharded`, ``meta``'s mesh loop) read every
+shard on one host and stay single-controller, as in the JAX package.
 
 Rows move between shards by hash owner: :func:`bitpack.mix32` chained over
 the JAX package's uint32 limbs of the row's key, salted per exchange,
@@ -65,11 +77,39 @@ DYN_CAP_FACTOR = 4           # the JAX mesh loop's bucket rows (dynamic.py:685)
 
 
 class Mesh(NamedTuple):
+    """One process over every shard. The sharded functions see a mesh
+    through ``devices`` (the shards this process drives), ``size`` (all
+    shards), ``first`` (the global index of ``devices[0]``) and the four
+    methods below, which :class:`distributed.ProcessMesh` implements with
+    collectives; here they are copies between this process's devices."""
     devices: Tuple[torch.device, ...]
 
     @property
     def size(self) -> int:
         return len(self.devices)
+
+    @property
+    def first(self) -> int:
+        return 0
+
+    def tables_on(self, dev: torch.device) -> int:
+        """Shards on ``dev``."""
+        return self.devices.count(dev)
+
+    def allgather_ints(self, values: Sequence[int]) -> List[List[int]]:
+        return [list(values)]
+
+    def size_table(self, rows: List[torch.Tensor]) -> List[List[int]]:
+        """The ``size x size`` table of the per-shard rows, in one host
+        read."""
+        return torch.stack([r.to(self.devices[0]) for r in rows]).tolist()
+
+    def exchange(self, parts: List[List[torch.Tensor]],
+                 recv) -> List[List[torch.Tensor]]:
+        """``out[d][s]`` is ``parts[s][d]`` on shard d's device."""
+        return [[parts[s][d].to(dev, non_blocking=True)
+                 for s in range(self.size)]
+                for d, dev in enumerate(self.devices)]
 
 
 def make_mesh(devices: Sequence) -> Mesh:
@@ -129,51 +169,76 @@ def _window_owner(bases: torch.Tensor, n: int, salt: int) -> torch.Tensor:
 
 
 class Route(NamedTuple):
-    """Where each source's rows go: ``orders[s]`` is source s's rows in
-    stable order by owner, and ``sizes[s][d]`` how many go to shard d
-    (rows with owner n, the dead ones, go nowhere)."""
+    """Where each local source's rows go: ``orders[s]`` is local shard s's
+    rows in stable order by owner, and ``sizes[g][d]`` how many rows
+    global shard g sends to global shard d (rows with owner ``size``, the
+    dead ones, go nowhere); ``limbs[g][d]`` the flat pool limbs those rows
+    hold, where the route was planned with ``row_limbs``."""
     orders: List[torch.Tensor]
     sizes: List[List[int]]
+    limbs: Optional[List[List[int]]] = None
 
 
-def plan_route(owners: List[torch.Tensor], mesh: Mesh) -> Route:
-    """Route rows by owner (``_bucketize``): the n x n bucket sizes reach
-    the host in one read."""
+def plan_route(owners: List[torch.Tensor], mesh, row_limbs=None) -> Route:
+    """Route rows by owner (``_bucketize``): the ``size x size`` bucket
+    sizes (and, given each row's limb count ``row_limbs[s]``, the limb
+    totals beside them) reach the host in one read, after one gather
+    across the processes of a :class:`distributed.ProcessMesh`."""
     n = mesh.size
     orders = [torch.sort(o, stable=True).indices for o in owners]
-    counts = [torch.bincount(o, minlength=n + 1)[:n].to(mesh.devices[0])
-              for o in owners]
-    return Route(orders, torch.stack(counts).tolist())
+    rows = [torch.bincount(o, minlength=n + 1)[:n] for o in owners]
+    if row_limbs is None:
+        return Route(orders, mesh.size_table(rows))
+    rows = [torch.cat([r, torch.zeros(n + 1, dtype=torch.int64,
+                                      device=o.device)
+                       .index_add_(0, o, nl.to(torch.int64))[:n]])
+            for r, o, nl in zip(rows, owners, row_limbs)]
+    table = mesh.size_table(rows)
+    return Route(orders, [r[:n] for r in table], [r[n:] for r in table])
 
 
-def send(route: Route, cols: List[tuple], mesh: Mesh) -> List[tuple]:
-    """Exchange row-aligned tensors (``cols[s]`` a tuple of source s's
-    columns) along ``route``; returns each shard's received columns,
-    sources in mesh order (``_scatter_exchange``, exact sizes)."""
-    n = mesh.size
-    parts = []
-    for s in range(n):
-        idx = route.orders[s][:sum(route.sizes[s])]
-        parts.append([t[idx].split(route.sizes[s]) for t in cols[s]])
-    return [tuple(torch.cat([parts[s][c][d].to(dev, non_blocking=True)
-                             for s in range(n)])
-                  for c in range(len(cols[0])))
-            for d, dev in enumerate(mesh.devices)]
+def _recv_sizes(table: List[List[int]], mesh) -> List[List[int]]:
+    """What each local shard receives from every global shard."""
+    return [[row[mesh.first + j] for row in table]
+            for j in range(len(mesh.devices))]
 
 
-def send_back(route: Route, vals: List[torch.Tensor], mesh: Mesh,
+def _send_column(cols: List[torch.Tensor], mesh,
+                 table: List[List[int]]) -> List[torch.Tensor]:
+    """One row-aligned column of every local source, already in route
+    order, split by ``table``: each local shard's received rows, sources
+    in global mesh order."""
+    parts = [t.split(table[mesh.first + s]) for s, t in enumerate(cols)]
+    return [torch.cat(got) for got in
+            mesh.exchange(parts, _recv_sizes(table, mesh))]
+
+
+def send(route: Route, cols: List[tuple], mesh) -> List[tuple]:
+    """Exchange row-aligned tensors (``cols[s]`` a tuple of local source
+    s's columns) along ``route``; returns each local shard's received
+    columns, sources in global mesh order (``_scatter_exchange``, exact
+    sizes; the order of ``all_to_all(..., tiled=True)``)."""
+    taken = []
+    for s, cs in enumerate(cols):
+        idx = route.orders[s][:sum(route.sizes[mesh.first + s])]
+        taken.append([t[idx] for t in cs])
+    got = [_send_column(list(c), mesh, route.sizes)
+           for c in zip(*taken)]
+    return [tuple(c[d] for c in got) for d in range(len(mesh.devices))]
+
+
+def send_back(route: Route, vals: List[torch.Tensor], mesh,
               fill) -> List[torch.Tensor]:
-    """The reverse exchange: ``vals[d]`` holds one value per row shard d
-    received; each returns to its source row, and rows that were not sent
-    get ``fill``."""
-    n = mesh.size
-    parts = [v.split([route.sizes[s][d] for s in range(n)])
-             for d, v in enumerate(vals)]
+    """The reverse exchange: ``vals[d]`` holds one value per row local
+    shard d received; each returns to its source row, and rows that were
+    not sent get ``fill``."""
+    back_sizes = [list(r) for r in zip(*route.sizes)]
+    parts = [v.split(back_sizes[mesh.first + d]) for d, v in enumerate(vals)]
     out = []
-    for s, dev in enumerate(mesh.devices):
-        back = torch.cat([parts[d][s].to(dev, non_blocking=True)
-                          for d in range(n)])
-        order = route.orders[s]
+    for got, order, dev in zip(
+            mesh.exchange(parts, _recv_sizes(back_sizes, mesh)),
+            route.orders, mesh.devices):
+        back = torch.cat(got)
         full = torch.full(order.shape, fill, dtype=back.dtype, device=dev)
         full[order[:back.shape[0]]] = back
         out.append(full)
@@ -184,25 +249,50 @@ def send_back(route: Route, vals: List[torch.Tensor], mesh: Mesh,
 # counting and the fork filter
 # ---------------------------------------------------------------------------
 
-def shard_passes(R: int, L: int, k: int, mesh: Mesh, partitions: int = 0
-                 ) -> List[List[Tuple[int, int]]]:
-    """The counting passes over ``R`` reads of ``L`` bases: shard s takes
-    the contiguous block of ``ceil(R / n)`` rows from ``s * ceil(R / n)``
-    (the JAX package's ``P("shards")`` split, its zero-length padding rows
-    left out), cut into passes of :func:`count.pass_rows` rows (so about
-    ``partitions`` passes in all under ``-partition``). Pass i is one
-    ``(lo, hi)`` row range per shard, empty where a block has run out."""
-    block = -(-R // mesh.size)
-    rows = pass_rows(R, L, k, partitions)
+def _block_passes(R: int, block: int, rows: int, shards: int
+                  ) -> List[List[Tuple[int, int]]]:
+    """Passes of ``rows`` rows over ``shards`` contiguous blocks of
+    ``block`` rows of an ``R``-row matrix: pass i is one ``(lo, hi)`` row
+    range per block, empty where a block has run out."""
     return [[(min(s * block + lo, R), min(s * block + lo + rows,
                                           (s + 1) * block, R))
-             for s in range(mesh.size)]
+             for s in range(shards)]
+            for lo in range(0, block, rows)]
+
+
+def shard_passes(bases, k: int, mesh, partitions: int = 0
+                 ) -> List[List[Tuple[int, int]]]:
+    """The counting passes over the ``R`` reads of ``L`` bases of
+    ``bases``: each of the mesh's ``n`` shards takes a contiguous block of
+    ``ceil(R / n)`` rows (the JAX package's ``P("shards")`` split, its
+    zero-length padding rows left out), cut into passes of
+    :func:`count.pass_rows` rows (so about ``partitions`` passes in all
+    under ``-partition``). Pass i is one ``(lo, hi)`` row range per local
+    shard, empty where a block has run out.
+
+    On a :class:`distributed.ProcessMesh`, ``bases`` is this process's
+    block, and every process learns the others' row counts and widths in
+    one gather, so all of them make the same passes: each local shard
+    takes ``B`` rows, ``B`` the most any process's block gives a shard
+    (process p's block is rows ``[p * R_pad / P, (p + 1) * R_pad / P)`` of
+    the matrix padded to ``R_pad`` rows, as ``multiprocess_smoke.py``
+    feeds the JAX package's global arrays; its last block may be short or
+    empty)."""
+    R, L = bases.shape
+    local = len(mesh.devices)
+    info = mesh.allgather_ints([R, L])
+    block = max(-(-r // local) for r, _ in info)
+    rows = pass_rows(sum(r for r, _ in info), max(w for _, w in info), k,
+                     partitions)
+    return [[(min(s * block + lo, R), min(s * block + lo + rows,
+                                          (s + 1) * block, R))
+             for s in range(local)]
             for lo in range(0, block, rows)]
 
 
 def count_kmers_sharded(bases, lengths, *, k: int, min_cov: int,
                         max_cov: int = 10_000_000, partitions: int = 0,
-                        mesh: Mesh, plain: bool = False
+                        mesh, plain: bool = False
                         ) -> List[Tuple[torch.Tensor, torch.Tensor]]:
     """Sharded canonical k-mer counting (``parallel.count_kmers_sharded``).
     In each pass of :func:`shard_passes` every shard counts its rows with
@@ -217,14 +307,19 @@ def count_kmers_sharded(bases, lengths, *, k: int, min_cov: int,
     at most ``STREAM_WINDOW_LIMIT // W`` windows a shard (fewer under
     ``partitions``). ``plain`` runs the kernels' plain versions. Like the
     JAX function it takes no clips: the sharded ``run`` and ``meta``
-    count every base of every read whatever ``-clipf``/``-clipe`` say."""
+    count every base of every read whatever ``-clipf``/``-clipe`` say.
+
+    On a :class:`distributed.ProcessMesh`, ``bases`` is this process's
+    block (:func:`shard_passes`), every process makes the same passes
+    (an empty block joins each exchange with empty tables), and the
+    result is the local shards' tables; ``count.table_rows_k<k>`` counts
+    this process's shards."""
     check_k(k)
     n = mesh.size
-    R, L = bases.shape
     met = metrics.current()
-    tables = [_RunningTable(k, dev, tables=mesh.devices.count(dev))
+    tables = [_RunningTable(k, dev, tables=mesh.tables_on(dev))
               for dev in mesh.devices]
-    for ranges in shard_passes(R, L, k, mesh, partitions):
+    for ranges in shard_passes(bases, k, mesh, partitions):
         met.add("count.chunks")
         local = []
         for (lo, hi), dev in zip(ranges, mesh.devices):
@@ -241,7 +336,7 @@ def count_kmers_sharded(bases, lengths, *, k: int, min_cov: int,
         del local
         for d, (keys, counts) in enumerate(got):
             # source s's rows arrive sorted: merge them one source at a time
-            sizes = [route.sizes[s][d] for s in range(n)]
+            sizes = [route.sizes[s][mesh.first + d] for s in range(n)]
             for kk, cc in zip(keys.split(sizes), counts.split(sizes)):
                 tables[d].add(kk, cc)
         del got
@@ -255,7 +350,7 @@ def count_kmers_sharded(bases, lengths, *, k: int, min_cov: int,
 
 def build_initial_records_sharded(
     tables: List[Tuple[torch.Tensor, torch.Tensor]], *, k: int,
-    min_error: int, mesh: Mesh, bubble: bool = True,
+    min_error: int, mesh, bubble: bool = True,
 ) -> List[Records]:
     """Sharded RC expansion and both fork passes
     (``parallel.build_initial_records_sharded``): pass 1 routes the
@@ -329,7 +424,7 @@ def sort_k_records_sharded(bases, lengths, k: int, params: Params, *,
 
 
 def mercy_kmer_table_sharded(bases, lengths, *, k: int, min_cov: int,
-                             max_cov: int = 10_000_000, mesh: Mesh,
+                             max_cov: int = 10_000_000, mesh,
                              plain: bool = False):
     """Solid + mercy table with the count table hash-sharded
     (``parallel.mercy_kmer_table_sharded`` and ``_mercy_flags_sharded``):
@@ -338,9 +433,12 @@ def mercy_kmer_table_sharded(bases, lengths, *, k: int, min_cov: int,
     each to the shard owning its key, which looks its count up and sends
     it back; the flank rule runs on the reads' own shard
     (:func:`mercy.flank_rule`); every mercy key goes to its owner, which
-    flags that table row. Returns ``(keys, counts)`` on the first shard's
-    device: each shard's solid and flagged rows, shards in order. The
-    windows go in the passes of :func:`shard_passes`."""
+    flags that table row. On a :class:`Mesh` returns ``(keys, counts)``
+    on the first shard's device: each shard's solid and flagged rows,
+    shards in order. On a :class:`distributed.ProcessMesh` (``bases`` this
+    process's block) returns a list of each local shard's solid and
+    flagged ``(keys, counts)``, local shards in order. The windows go in
+    the passes of :func:`shard_passes`."""
     from .mercy import flank_rule, lookup_counts, window_keys
 
     n = mesh.size
@@ -348,8 +446,7 @@ def mercy_kmer_table_sharded(bases, lengths, *, k: int, min_cov: int,
                                  max_cov=max_cov, mesh=mesh, plain=plain)
     flags = [torch.zeros(c.numel(), dtype=torch.bool, device=c.device)
              for _, c in tables]
-    R, L = bases.shape
-    for ranges in shard_passes(R, L, k, mesh):
+    for ranges in shard_passes(bases, k, mesh):
         keys, valid, owners = [], [], []
         for (lo, hi), dev in zip(ranges, mesh.devices):
             kk, ok = window_keys(
@@ -373,6 +470,8 @@ def mercy_kmer_table_sharded(bases, lengths, *, k: int, min_cov: int,
             fl[pos[hit > 0]] = True
     out = [(tk[(tc >= min_cov) | fl], tc[(tc >= min_cov) | fl])
            for (tk, tc), fl in zip(tables, flags)]
+    if not isinstance(mesh, Mesh):
+        return out
     dev = mesh.devices[0]
     return (torch.cat([kk.to(dev) for kk, _ in out]),
             torch.cat([cc.to(dev) for _, cc in out]))
@@ -383,7 +482,7 @@ def mercy_kmer_table_sharded(bases, lengths, *, k: int, min_cov: int,
 # ---------------------------------------------------------------------------
 
 def extension_round_sharded_packed(
-    pools: List[pk.PackedRecords], round_seed: int, *, k: int, mesh: Mesh,
+    pools: List[pk.PackedRecords], round_seed: int, *, k: int, mesh,
 ) -> List[pk.PackedRecords]:
     """One sharded round (``parallel.extension_round_sharded_packed``):
     each live row draws its orientation and goes to the owner of its
@@ -412,7 +511,7 @@ def extension_round_sharded_packed(
 
 
 def finished_mask_sharded(pools: List[pk.PackedRecords], *, k: int,
-                          mesh: Mesh) -> List[torch.Tensor]:
+                          mesh) -> List[torch.Tensor]:
     """The mesh-wide census (``parallel.finished_mask_sharded``): every
     live row sends its head and tail (k-1)-base keys to their owners, the
     owner finds which messages have a live partner of the other end
@@ -439,13 +538,15 @@ def finished_mask_sharded(pools: List[pk.PackedRecords], *, k: int,
             for p, b in zip(pools, back)]
 
 
-def pad_pdyn(pools: List[pd.FlatPool], cap: int, mesh: Mesh
+def pad_pdyn(pools: List[pd.FlatPool], cap: int, mesh
              ) -> List[pd.FlatPool]:
     """Lay the rows of ``pools`` (in order) out as ``dynamic._pad_pdyn``
     and ``P("shards")`` do: into a pool of ``cap`` rows split into
     contiguous blocks of ``cap / n``, so shard s holds rows
     ``[s * cap / n, (s + 1) * cap / n)`` of the whole, and only its live
-    rows are kept."""
+    rows are kept. Returns the shards of ``mesh.devices`` (on a
+    :class:`distributed.ProcessMesh`, this process's, from the whole
+    pool every process holds)."""
     n = mesh.size
     M = cap // n
     sizes = [p.n for p in pools]
@@ -460,22 +561,27 @@ def pad_pdyn(pools: List[pd.FlatPool], cap: int, mesh: Mesh
                                               zip(cuts, cuts[1:])])):
             pieces[t].append(part)
         g += size
-    return [pd.cat(ps, dev) for ps, dev in zip(pieces, mesh.devices)]
+    return [pd.cat(pieces[mesh.first + i], dev)
+            for i, dev in enumerate(mesh.devices)]
 
 
-def send_pools(route: Route, pools: List[pd.FlatPool], mesh: Mesh
+def send_pools(route: Route, pools: List[pd.FlatPool], mesh
                ) -> List[pd.FlatPool]:
-    """:func:`send` for flat pools: each source's rows in route order, cut
-    per destination; each destination takes the sources in mesh order."""
-    parts = [pd.split(pd.take(p, route.orders[s][:sum(route.sizes[s])]),
-                      route.sizes[s]) for s, p in enumerate(pools)]
-    return [pd.cat([parts[s][d] for s in range(mesh.size)], dev)
-            for d, dev in enumerate(mesh.devices)]
+    """:func:`send` for flat pools (``route`` planned with each row's limb
+    count): each source's rows in route order, cut per destination; each
+    destination takes the sources in global mesh order. The limbs split
+    by the route's limb totals, the other columns by its row counts."""
+    parts = [pd.take(p, route.orders[s][:sum(route.sizes[mesh.first + s])])
+             for s, p in enumerate(pools)]
+    cols = [_send_column([p.limbs for p in parts], mesh, route.limbs)]
+    cols += [_send_column(list(c), mesh, route.sizes)
+             for c in zip(*(p[1:] for p in parts))]
+    return [pd.FlatPool(*c) for c in zip(*cols)]
 
 
 def pdyn_extension_round_sharded(
     pools: List[pd.FlatPool], round_seed: int, *, kmin: int, max_sub: int,
-    mesh: Mesh, cap: int, unique_only: bool = False,
+    mesh, cap: int, unique_only: bool = False,
 ) -> Optional[List[pd.FlatPool]]:
     """One sharded mixed-k round (``parallel.pdyn_extension_round_sharded``):
     each row goes to the owner of its (kmin-1)-base group key (``mix32``
@@ -485,19 +591,24 @@ def pdyn_extension_round_sharded(
     round would overflow on a pool of ``cap`` rows (a source sends more
     than ``max(1, DYN_CAP_FACTOR * M // n)`` rows to one shard, or a shard
     ends with more than ``M = cap / n`` rows): the caller then re-lays at
-    twice the capacity, as the JAX loop does. No row is ever dropped."""
+    twice the capacity, as the JAX loop does. No row is ever dropped. On a
+    :class:`distributed.ProcessMesh` both decisions are global (the
+    route's table, and one gather of every process's largest shard), so
+    every process returns None together."""
     n = mesh.size
     M = cap // n
     owners = [hash_owner(pd.group_keys(p, round_seed, kmin)[1], n,
                          DYN_ROUND_SALT) for p in pools]
-    route = plan_route(owners, mesh)
+    route = plan_route(owners, mesh,
+                       row_limbs=[pd.row_offsets(p.length)[1] for p in pools])
     if max(max(row) for row in route.sizes) > max(1, DYN_CAP_FACTOR * M // n):
         return None
     out = [pd.pdyn_extension_round_fused(
         p, round_seed, kmin=kmin, max_sub=max_sub,
         unique_only=unique_only)[0]
         for p in send_pools(route, pools, mesh)]
-    return None if max(p.n for p in out) > M else out
+    most = max(max(r) for r in mesh.allgather_ints([max(p.n for p in out)]))
+    return None if most > M else out
 
 
 def finished_mask_pdyn_sharded(pools: List[pd.FlatPool], max_sub: int,
