@@ -13,7 +13,14 @@ script. Phases, one line each:
   2. extraction kernel vs its plain torch version on the main path's read
      matrix (k = 31, and k = 21 with front/end clips 3/2): exactly equal;
   3. radix-sort kernel vs ``torch.sort``, on the main path's keys and on
-     2^27 keys with duplicates and a sentinel tail: exactly equal;
+     2^27 keys with duplicates and a sentinel tail: exactly equal; the row
+     sort vs chained stable ``torch.sort`` on the main path's rows at
+     k = 61, 81 and 95, on the k = 61 rows with the poly-T sentinel in a
+     random quarter, on the k = 61 rows of the genome with planted repeat
+     families (``REPEATS``), on 2^24 rows in runs of 100-8,000 rows at each
+     W, and on 2^20 rows of one leading word at each W: exactly equal, each
+     line with the run census (rows in runs of 1, 2-32, up to the CTA cap,
+     longer) and the design traffic;
   4. the main path at bacterial scale: a random 4,641,652 bp genome (the
      length of E. coli K-12 MG1655, NC_000913.3) from ``--seed``, 100 bp
      reads at 30x with 0.5% substitutions in a FASTQ file, assembled by
@@ -229,6 +236,13 @@ N_PLANTED, N_PLANTED_CHECK = 16, 2   # of each, at 4.64 Mbp and at 200 kb
 READ_LEN, DEPTH, ERR = 100, 30, 0.005
 SORT_N = 1 << 27
 ROW_KS = (61, 81, 95)        # W = 2, 3 and 4 words
+# phase 3's repeat families, (copies, bp) as in bacterial genomes: E. coli
+# K-12's seven rRNA operons and its IS1 and IS5 copies, and Bordetella
+# pertussis Tohama I's 238 IS481 copies; copies of a family differ in
+# REPEAT_DIV of their bases
+REPEATS = ((7, 5000), (7, 768), (11, 1195), (238, 1045))
+REPEAT_DIV = 0.002
+MIXED_RUNS_N = 1 << 24       # phase 3's rows in runs of 100-8,000 rows
 ACGT = np.frombuffer(b"ACGT", np.uint8)
 HBM_BYTES_S = 3.35e12        # H100 SXM device memory
 INT_OPS_S = 67e12            # the card's non-tensor 32-bit peak
@@ -244,6 +258,12 @@ def simulate(rng, genome_bp: int):
     strands with 0.5% substitutions (a substitution may redraw the same
     base, as tests/test_e2e.py's simulator does)."""
     genome = rng.integers(0, 4, genome_bp, dtype=np.uint8)
+    return genome, sample_reads(rng, genome)
+
+
+def sample_reads(rng, genome: np.ndarray) -> np.ndarray:
+    """:func:`simulate`'s reads of a given genome."""
+    genome_bp = len(genome)
     n = DEPTH * genome_bp // READ_LEN
     starts = rng.integers(0, genome_bp - READ_LEN + 1, n)
     reads = genome[starts[:, None] + np.arange(READ_LEN)]
@@ -251,7 +271,48 @@ def simulate(rng, genome_bp: int):
     reads[err] = rng.integers(0, 4, int(err.sum()), dtype=np.uint8)
     flip = rng.random(n) < 0.5
     reads[flip] = 3 - reads[flip, ::-1]
-    return genome, reads
+    return reads
+
+
+def plant_repeats(rng, genome: np.ndarray) -> np.ndarray:
+    """A copy of ``genome`` with the ``REPEATS`` families written over it:
+    each copy at a random place in a slot of its own, on a random strand,
+    with ``REPEAT_DIV`` of its bases substituted."""
+    out = genome.copy()
+    n_copies = sum(n for n, _bp in REPEATS)
+    slot = len(genome) // n_copies
+    units = [rng.integers(0, 4, bp, dtype=np.uint8) for _n, bp in REPEATS]
+    order = rng.permutation(n_copies)
+    at = 0
+    for f, (n, bp) in enumerate(REPEATS):
+        for _ in range(n):
+            copy = units[f].copy()
+            sub = rng.random(bp) < REPEAT_DIV
+            copy[sub] = (copy[sub] + rng.integers(1, 4, int(sub.sum()),
+                                                  dtype=np.uint8)) % 4
+            if rng.random() < 0.5:
+                copy = 3 - copy[::-1]
+            start = order[at] * slot + rng.integers(0, slot - bp + 1)
+            out[start:start + bp] = copy
+            at += 1
+    return out
+
+
+def mixed_runs(torch, g, n: int, W: int, last_bits: int):
+    """(n, W) rows in runs of 100-8,000 rows of one leading word each,
+    the other words random (the last of ``last_bits`` bits), shuffled."""
+    dev = g.device
+    lengths = torch.randint(100, 8001, (n // 100 + 1,), generator=g,
+                            device=dev)
+    ends = torch.cumsum(lengths, 0)
+    m = int((ends < n).sum()) + 1
+    lengths = lengths[:m]
+    lengths[-1] -= int(ends[m - 1]) - n
+    rows = torch.randint(0, 1 << 62, (n, W), generator=g, device=dev)
+    rows[:, -1] &= (1 << last_bits) - 1
+    rows[:, 0] = torch.randint(0, 1 << 62, (m,), generator=g,
+                               device=dev).repeat_interleave(lengths)
+    return rows[torch.randperm(n, generator=g, device=dev)]
 
 
 def fastq_records(reads: np.ndarray) -> np.ndarray:
@@ -318,20 +379,53 @@ def trains_ms(torch, fns, calls=200, trains=5):
     return {name: float(np.median(t)) for name, t in times.items()}
 
 
-def sort_traffic(radix_sort, n: int, W: int, last_bits: int) -> int:
-    """Design bytes of one sort by its pass plan: the histogram reads
-    every word once; a pass reads its key (8 B) and index (4 B, rows), and
-    writes its key where the plan says and the index; the last pass of a
-    row sort gathers the other W - 1 words and writes the rows."""
-    total = 8 * W * n
-    for _w, _s, _k, idx_src, _d, flags in radix_sort.pass_plan(W, last_bits):
-        total += 8 * n + (4 * n if idx_src >= 0 else 0)
-        if flags & radix_sort.WRITE_ROWS:
-            total += 8 * (W - 1) * n + 8 * W * n
-            continue
-        total += 8 * n if flags & radix_sort.WRITE_KEYS else 0
-        total += 4 * n if W > 1 else 0
+def sort_traffic(radix_sort, n: int, W: int, last_bits: int,
+                 long_rows: int = 0, oversized: int = 0) -> int:
+    """Design bytes of one sort (each read and write the design makes,
+    once). Keys: the histogram reads every key, and every pass reads it
+    and writes it. Rows: the lead sort (``lead_plan``) reads word 0 in
+    its histogram and its first pass, and each pass writes (word 0,
+    index), which the next pass reads; the tie pass reads word 0 and the
+    index, gathers the row's other words and writes the row; the
+    ``long_rows`` in runs over ``WARP_CAP`` gather their other words once
+    more, for their difference bits; the ``oversized`` rows of mixed runs
+    over ``CTA_CAP`` add the compaction of their ids and the row plan's
+    (``pass_plan``) traffic on them."""
+    if W == 1:
+        return 8 * n + 16 * n * len(radix_sort.pass_plan(1, last_bits))
+    lead = len(radix_sort.lead_plan())
+    total = 8 * n + 8 * n + 12 * n + 24 * n * (lead - 1)
+    total += 12 * n + 8 * (W - 1) * n + 8 * W * n
+    total += 8 * (W - 1) * long_rows
+    if oversized:
+        m = oversized
+        total += 8 * m + 8 * W * m
+        for _w, _s, _k, idx_src, _d, flags in radix_sort.pass_plan(
+                W, last_bits):
+            total += 8 * m + (4 * m if idx_src >= 0 else 0)
+            if flags & radix_sort.WRITE_ROWS:
+                total += 8 * (W - 1) * m + 8 * W * m
+                continue
+            total += 8 * m if flags & radix_sort.WRITE_KEYS else 0
+            total += 4 * m
     return total
+
+
+def run_census(torch, radix_sort, out):
+    """Rows of sorted word rows by the length of their run of equal word 0
+    (1, 2-32, 33-CTA_CAP, longer), the runs over the cap, and the rows in
+    those that are not all identical (step 4 sorts these)."""
+    _u, counts = torch.unique_consecutive(out[:, 0], return_counts=True)
+    ends = torch.cumsum(counts, 0)
+    cap = radix_sort.CTA_CAP
+    bins = [int(counts[(counts >= lo) & (counts <= hi)].sum())
+            for lo, hi in ((1, 1), (2, radix_sort.WARP_CAP),
+                           (radix_sort.WARP_CAP + 1, cap))]
+    big = counts > cap
+    bins.append(int(counts[big].sum()))
+    first, last = (ends - counts)[big], ends[big] - 1
+    mixed = (out[first] != out[last]).any(dim=1)
+    return bins, int(big.sum()), int(counts[big][mixed].sum())
 
 
 def bound_ms(bytes_moved: float, int_ops: float = 0.0):
@@ -486,6 +580,29 @@ def main(argv=None) -> int:
         f"{bounds['sort'][0]:.3f} ms; design traffic {design / 1e9:.3f} GB, "
         f"{design / ms / 1e6:.1f} GB/s")
     del keys31
+    g = torch.Generator(device=dev).manual_seed(args.seed)
+
+    def sort_rows_line(label, krows, last, ms, pms):
+        """Phase 3's figures for one row input: the run census of the
+        sorted rows, design traffic, its rate, and the share of the bound
+        (each row read once and written once)."""
+        W = krows.shape[1]
+        bins, n_big, mixed = run_census(
+            torch, radix_sort, radix_sort.sort_rows(krows, last_bits=last))
+        design = sort_traffic(radix_sort, krows.shape[0], W, last,
+                              bins[2] + bins[3], mixed)
+        bound = bound_ms(16 * krows.numel())
+        say(f"phase 3 sort rows {label}: {krows.shape[0]} rows x {W} words, "
+            f"equal; kernel {ms:.3f} ms, chained stable torch.sort "
+            f"{pms:.3f} ms; bound {bound[0]:.3f} ms, {bound[0] / ms:.1%} of "
+            f"it; design traffic {design / 1e9:.3f} GB "
+            f"({design / krows.shape[0]:.0f} B a row), "
+            f"{design / ms / 1e6:.1f} GB/s; rows in runs of 1 / 2-"
+            f"{radix_sort.WARP_CAP} / -{radix_sort.CTA_CAP} / more: "
+            + " / ".join(str(b) for b in bins)
+            + f" ({n_big} runs over the cap, {mixed} rows of them mixed)")
+        return bound
+
     for k in ROW_KS:
         W = num_words(k)
         krows = extract.extract_canonical_rows(bases, lens, k=k)
@@ -495,14 +612,50 @@ def main(argv=None) -> int:
             lambda: radix_sort.sort_rows(krows, last_bits=last),
             lambda: radix_sort.sort_rows_torch(krows))
         rows[f"sort_rows{W}"] = (err, ms, pms)
-        bounds[f"sort_rows{W}"] = bound_ms(16 * krows.numel())
-        design = sort_traffic(radix_sort, krows.shape[0], W, last)
-        say(f"phase 3 sort rows k={k}: {krows.shape[0]} rows x {W} words, "
-            f"equal; kernel {ms:.3f} ms, chained stable torch.sort "
-            f"{pms:.3f} ms; bound {bounds[f'sort_rows{W}'][0]:.3f} ms; "
-            f"design traffic {design / 1e9:.3f} GB, "
-            f"{design / ms / 1e6:.1f} GB/s")
+        bounds[f"sort_rows{W}"] = sort_rows_line(f"k={k}", krows, last, ms,
+                                                 pms)
+        if k == ROW_KS[0]:
+            # the poly-T sentinel in a random quarter of the rows: one
+            # identical run of n / 4 rows at the tail
+            krows[torch.randperm(krows.shape[0], generator=g, device=dev)
+                  [:krows.shape[0] // 4]] = torch.tensor(
+                      extract.sentinel(k), device=dev)
+            _e, ms, pms = compare(
+                torch, f"sort rows k={k} sentinel quarter",
+                lambda: radix_sort.sort_rows(krows, last_bits=last),
+                lambda: radix_sort.sort_rows_torch(krows))
+            sort_rows_line(f"k={k}, sentinel in 1/4", krows, last, ms, pms)
+            del krows
+            # the genome with repeat families: runs of 33-8,192 rows
+            rng_rep = np.random.default_rng(args.seed + 10)
+            rbases = torch.from_numpy(sample_reads(
+                rng_rep, plant_repeats(rng_rep, genome))).to(dev)
+            krows = extract.extract_canonical_rows(rbases, lens, k=k)
+            del rbases
+            _e, ms, pms = compare(
+                torch, f"sort rows k={k} planted repeats",
+                lambda: radix_sort.sort_rows(krows, last_bits=last),
+                lambda: radix_sort.sort_rows_torch(krows))
+            sort_rows_line(f"k={k}, planted repeats", krows, last, ms, pms)
         del krows
+        mixed = mixed_runs(torch, g, MIXED_RUNS_N, W, last)
+        _e, ms, pms = compare(
+            torch, f"sort rows W={W} runs of 100-8000",
+            lambda: radix_sort.sort_rows(mixed, last_bits=last),
+            lambda: radix_sort.sort_rows_torch(mixed))
+        sort_rows_line(f"W={W}, runs of 100-8,000", mixed, last, ms, pms)
+        del mixed
+        # one word 0 and 2^20 random suffixes: step 4 on every row
+        one = torch.randint(0, 1 << 62, (1 << 20, W), generator=g,
+                            device=dev)
+        one[:, 0] = 12345
+        one[:, -1] &= (1 << last) - 1
+        _e, ms, pms = compare(
+            torch, f"sort rows W={W} one run",
+            lambda: radix_sort.sort_rows(one, last_bits=last),
+            lambda: radix_sort.sort_rows_torch(one))
+        sort_rows_line(f"W={W}, one run of 2^20", one, last, ms, pms)
+        del one
     g = torch.Generator(device=dev).manual_seed(args.seed)
     pool = torch.randint(0, 1 << 62, (1 << 20,), generator=g, device=dev)
     big = pool[torch.randint(0, pool.numel(), (SORT_N,), generator=g,

@@ -47,18 +47,25 @@ _SIGNATURES = {
     # (keys_in, buf0, buf1, hist, status, n, plan (host), passes, stream)
     "rfx_radix_sort_keys": [_P, _P, _P, _P, _P, _I64, _P, _I32, _P],
     # (rows_in, keys0, keys1, idx0, idx1, out, hist, status, n, W,
-    #  plan (host), passes, stream)
+    #  lead plan (host), lead passes, plan (host), passes, stream)
     "rfx_radix_sort_rows": [_P, _P, _P, _P, _P, _P, _P, _P, _I64, _I32, _P,
-                            _I32, _P],
+                            _I32, _P, _I32, _P],
     # (hi, lo, starts, out_hi, out_lo, nb, block, slot, stream)
     "rfx_padded_exchange": [_P, _P, _P, _P, _P, _I64, _I64, _I64, _P],
     # (src, tile_starts, out, n_tiles, stream)
     "rfx_tile_gather": [_P, _P, _P, _I64, _P],
     # (pairs) -> elements per onesweep tile of the radix sort
     "rfx_radix_sort_tile": [_I32],
+    # (cta) -> rows of the longest run the row sort's tie pass sorts by a
+    # warp (0) or a CTA (1)
+    "rfx_radix_sort_tie_cap": [_I32],
 }
 
+# launchers that wait on the stream: called with the GIL released
+_WAITING = ("rfx_radix_sort_rows",)
+
 _lib: Optional[ctypes.CDLL] = None
+_waiting: Optional[ctypes.CDLL] = None
 _one_card: Optional[bool] = None   # set at the first launch
 last_build_seconds: float = 0.0   # 0.0 when the library came from the cache
 
@@ -135,17 +142,22 @@ def build() -> str:
 
 def lib() -> ctypes.CDLL:
     """The loaded kernel library (built on first call)."""
-    global _lib
+    global _lib, _waiting
     if _lib is None:
         # PyDLL keeps the GIL across the call: the launchers only enqueue
         # work and return, and releasing and taking the GIL back would
-        # cost a small kernel's call more host time than the launch
-        handle = ctypes.PyDLL(build())
+        # cost a small kernel's call more host time than the launch. The
+        # row sort waits on the stream once, so it goes through a CDLL
+        # handle, which releases the GIL for the call (other threads, such
+        # as the ingest thread, run meanwhile)
+        path = build()
+        handle, waiting = ctypes.PyDLL(path), ctypes.CDLL(path)
         for name, argtypes in _SIGNATURES.items():
-            fn = getattr(handle, name)
-            fn.argtypes = argtypes
-            fn.restype = ctypes.c_int
-        _lib = handle
+            for h in (handle, waiting):
+                fn = getattr(h, name)
+                fn.argtypes = argtypes
+                fn.restype = ctypes.c_int
+        _lib, _waiting = handle, waiting
     return _lib
 
 
@@ -163,7 +175,8 @@ def launch(name: str, device, *args) -> None:
     global _one_card
     import torch
 
-    fn = getattr(lib(), name)
+    handle = lib()
+    fn = getattr(_waiting if name in _WAITING else handle, name)
     if _one_card is None:
         _one_card = torch.cuda.device_count() == 1
     current = 0 if _one_card else torch.cuda.current_device()

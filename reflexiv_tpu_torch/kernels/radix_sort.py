@@ -9,11 +9,16 @@ keys in ``[0, 2^bits)`` come back ascending; the counting pass's sentinel
 ``(1 << 2k) - 1`` is the largest such value, so invalid windows end at the
 tail. Unlike ``sort_pairs_padded`` there is no power-of-two padding.
 :func:`sort_rows` sorts the ``(n, W)`` word rows of k >= 32 (``bitpack``)
-lexicographically, LSD over the words from the last to the first, as
-(word, 32-bit index) pairs.
+lexicographically: a onesweep over the leading word (:func:`lead_plan`),
+then a tie pass inside its runs, by a warp for runs of at most
+:data:`WARP_CAP` rows, by a CTA up to :data:`CTA_CAP`, and by the whole
+row plan (:func:`pass_plan`) on the rows of longer runs only.
 
-:func:`pass_plan` is the one description of the passes: the wrapper sizes
-and picks its buffers from it, and the kernel follows it row by row.
+:func:`pass_plan` and :func:`lead_plan` are the one description of the
+passes: the wrapper sizes and picks its buffers from them, and the kernel
+follows them row by row. :data:`WARP_CAP` and :data:`CTA_CAP` repeat the
+kernel's caps for the model in the tests; ``rfx_radix_sort_tie_cap``
+gives the kernel's own, and a card test holds them equal.
 """
 from __future__ import annotations
 
@@ -30,6 +35,9 @@ _DIGIT_BITS = 8
 _WORD_BITS = 62    # every word but the last is full
 WRITE_KEYS = 1     # pass_plan flags
 WRITE_ROWS = 2
+WARP_CAP = 32      # rows of the longest run a warp sorts (the warp's width)
+CTA_CAP = 8192     # rows of the longest run a CTA sorts in shared memory
+                   # (the kernel's kWarpCap and kCtaCap)
 
 
 def pass_plan(W: int, last_bits: int) -> np.ndarray:
@@ -66,6 +74,20 @@ def pass_plan(W: int, last_bits: int) -> np.ndarray:
             flags = 0 if last_of_word else WRITE_KEYS
         plan[p] = (word, shift, -1 if first else src,
                    -1 if p == 0 or W == 1 else src, dst, flags)
+    return plan
+
+
+def lead_plan() -> np.ndarray:
+    """The passes of a row sort's first step: (word 0, index) pairs
+    through the 62 bits of the leading word, in :func:`pass_plan`'s row
+    form. Every pass writes keys and index, the last into buffer 0: the
+    tie pass reads both."""
+    P = -(-_WORD_BITS // _DIGIT_BITS)
+    plan = np.empty((P, 6), np.int32)
+    for p in range(P):
+        src, dst = (P - p) % 2, (P - 1 - p) % 2
+        plan[p] = (0, _DIGIT_BITS * p, -1 if p == 0 else src,
+                   -1 if p == 0 else src, dst, WRITE_KEYS)
     return plan
 
 
@@ -116,7 +138,10 @@ def sort_rows(rows: torch.Tensor, *, last_bits: int) -> torch.Tensor:
     over the words.
 
     CUDA tensors launch the kernel (or raise); CPU tensors take
-    :func:`sort_rows_torch`. The input is never modified."""
+    :func:`sort_rows_torch`. The input is never modified. The launcher waits
+    on the stream once, for the count of runs longer than :data:`CTA_CAP`
+    (the host sorts their list), so the call returns once every step but
+    the sort of those runs has run on the card."""
     if not 1 <= last_bits <= _WORD_BITS:
         raise ValueError(f"last_bits={last_bits} must lie in [1, 62]")
     if rows.dim() != 2 or rows.dtype != torch.int64 or \
@@ -129,6 +154,7 @@ def sort_rows(rows: torch.Tensor, *, last_bits: int) -> torch.Tensor:
     if rows.shape[0] == 0:
         return rows.clone()
     (n, W), plan = rows.shape, pass_plan(rows.shape[1], last_bits)
+    lead = lead_plan()
     keys = [torch.empty(n, dtype=torch.int64, device=rows.device)
             for _ in range(2)]
     idx = [torch.empty(n, dtype=torch.int32, device=rows.device)
@@ -138,7 +164,8 @@ def sort_rows(rows: torch.Tensor, *, last_bits: int) -> torch.Tensor:
     build.launch("rfx_radix_sort_rows", rows.device, rows.data_ptr(),
                  keys[0].data_ptr(), keys[1].data_ptr(), idx[0].data_ptr(),
                  idx[1].data_ptr(), out.data_ptr(), hist.data_ptr(),
-                 status.data_ptr(), n, W, plan.ctypes.data, len(plan))
+                 status.data_ptr(), n, W, lead.ctypes.data, len(lead),
+                 plan.ctypes.data, len(plan))
     ROW_LAUNCHES[W] = ROW_LAUNCHES.get(W, 0) + 1
     return out
 

@@ -14,16 +14,15 @@ and ``nvcc``; prints the card's name and power limit first.
 from __future__ import annotations
 
 import argparse
-import ctypes
 import os
-import subprocess
 import sys
 
 import numpy as np
 import torch
 
-REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-sys.path.insert(0, REPO)
+import kernel_forms
+
+sys.path.insert(0, kernel_forms.REPO)
 
 # name -> [(text in the source, replacement)]
 VARIANTS = {
@@ -41,39 +40,15 @@ VARIANTS = {
 
 
 def build_variants():
-    """Compile every variant, all nvcc processes started together; returns
-    {name: loaded library}."""
+    """Compile every variant; returns {name: loaded library}."""
     from reflexiv_tpu_torch.kernels import build
 
-    with open(os.path.join(build.CSRC_DIR, "extract_kmers.cu")) as fh:
-        source = fh.read()
-    out_dir = os.path.join(REPO, "build", "extract_forms")
-    os.makedirs(out_dir, exist_ok=True)
-    procs = {}
-    for i, (name, edits) in enumerate(VARIANTS.items()):
-        text = source
-        for old, new in edits:
-            if old not in text:
-                raise SystemExit(f"variant {name!r}: {old!r} not in the source")
-            text = text.replace(old, new)
-        src = os.path.join(out_dir, f"form{i}.cu")
-        with open(src, "w") as fh:
-            fh.write(text)
-        lib = os.path.join(out_dir, f"libform{i}.so")
-        cmd = [build._nvcc(), *build.NVCC_FLAGS, "-shared", src, "-o", lib]
-        procs[name] = (lib, subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                                             stderr=subprocess.STDOUT,
-                                             text=True))
-    libs = {}
-    for name, (lib, proc) in procs.items():
-        log, _ = proc.communicate()
-        if proc.returncode != 0:
-            raise SystemExit(f"variant {name!r} failed to build:\n{log}")
-        handle = ctypes.CDLL(lib)
+    libs = kernel_forms.build_libraries(kernel_forms.variant_sources(
+        os.path.join(build.CSRC_DIR, "extract_kmers.cu"), VARIANTS),
+        "extract_forms")
+    for handle in libs.values():
         for fn in ("rfx_extract_canonical_keys", "rfx_extract_canonical_rows"):
-            getattr(handle, fn).argtypes = build._SIGNATURES[fn]
-            getattr(handle, fn).restype = ctypes.c_int
-        libs[name] = handle
+            kernel_forms.bind(handle, fn, build._SIGNATURES[fn])
     return libs
 
 
@@ -109,9 +84,7 @@ def main(argv=None) -> int:
         return 1
     import chip_smoke
 
-    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True).stdout.strip(), flush=True)
+    print(kernel_forms.card_line(), flush=True)
     libs = build_variants()
     dev = torch.device("cuda:0")
     _genome, reads = chip_smoke.simulate(np.random.default_rng(args.seed),
