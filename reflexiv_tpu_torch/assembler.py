@@ -17,17 +17,12 @@ from . import metrics
 from . import packed as pk
 from .contigs import emit_contigs
 from .count import count_kmers_auto
-from .device import resolve_device, synchronize
+from .device import resolve_device
 from .graph import build_initial_records
 from .params import Params
 from .records import Records, compact, next_pow2
 
 log = logging.getLogger("reflexiv_tpu_torch")
-
-
-def _lap(name: str, device: torch.device) -> None:
-    synchronize(device)
-    metrics.current().lap(name)
 
 
 def initial_records_from_counts(
@@ -137,17 +132,18 @@ def assemble_from_counts(
 ) -> List[Tuple[str, str]]:
     """Counted canonical k-mers (int64 keys, int32 counts) -> contigs."""
     device = resolve_device(device)
-    keys = keys.to(device)
-    counts = counts.to(device)
-    recs, n_live = initial_records_from_counts(keys, counts, params)
+    met = metrics.current()
+    with met.stage("run/graph", device=device):
+        keys = keys.to(device)
+        counts = counts.to(device)
+        recs, n_live = initial_records_from_counts(keys, counts, params)
     log.info("fork-filtered records: %d (from %d canonical k-mers)",
              n_live, counts.numel())
-    metrics.current().set("run/fork_filtered_records", n_live)
-    _lap("run/graph", device)
-    groups = run_extension_loop(recs, params, seed=seed)
-    _lap("run/extension", device)
-    contigs = emit_contigs(groups, min_contig=params.min_contig)
-    _lap("run/emit", device)
+    met.set("run/fork_filtered_records", n_live)
+    with met.stage("run/extension", device=device):
+        groups = run_extension_loop(recs, params, seed=seed)
+    with met.stage("run/emit", device=device):
+        contigs = emit_contigs(groups, min_contig=params.min_contig)
     log.info("emitted %d contigs >= %d bp", len(contigs), params.min_contig)
     return contigs
 
@@ -160,14 +156,14 @@ def assemble_reads(
     ``-partition`` (:func:`count.count_kmers_auto`)."""
     params.validate()
     device = resolve_device(device)
-    keys, counts = count_kmers_auto(
-        bases, lengths, k=params.k, min_cov=params.min_kmer_coverage,
-        max_cov=params.max_kmer_coverage, front_clip=params.front_clip,
-        end_clip=params.end_clip, partitions=params.partitions,
-        device=device)
-    log.info("counted %d solid canonical %d-mers", counts.numel(), params.k)
     met = metrics.current()
-    _lap("run/counting", device)
+    with met.stage("run/counting", device=device):
+        keys, counts = count_kmers_auto(
+            bases, lengths, k=params.k, min_cov=params.min_kmer_coverage,
+            max_cov=params.max_kmer_coverage, front_clip=params.front_clip,
+            end_clip=params.end_clip, partitions=params.partitions,
+            device=device)
+    log.info("counted %d solid canonical %d-mers", counts.numel(), params.k)
     met.set("run/solid_kmers", counts.numel())
     out = assemble_from_counts(keys, counts, params, seed=seed, device=device)
     met.set("run/contigs", len(out))

@@ -196,7 +196,7 @@ def park_finished_rows(p: ChainPool, fin: torch.Tensor, parked: list
 def run_extension_loop(p: ChainPool, pieces: Pieces, params, *,
                        seed: int = 0) -> List[ChainPool]:
     """:func:`assembler.run_extension_loop` on the chain pool: the pool,
-    then the parked batches."""
+    then the parked batches. Counts ``stitch/extension_rounds_k<k>``."""
     from .assembler import compact_quarter, extension_fixpoint
 
     k = params.k
@@ -204,7 +204,7 @@ def run_extension_loop(p: ChainPool, pieces: Pieces, params, *,
         p, lambda p, it, n: extension_round(compact_quarter(p, n), pieces,
                                             seed + it, k=k),
         lambda p: finished_mask(p, k), park_finished_rows, params)
-    metrics.current().set("run/extension_rounds", it)
+    metrics.current().set(f"stitch/extension_rounds_k{k}", it)
     return groups
 
 

@@ -36,7 +36,7 @@ import time
 import torch
 
 from . import __version__, metrics
-from .device import resolve_device, synchronize
+from .device import resolve_device
 from .kernels import launch_counts
 from .params import DEFAULT_KLIST, Params
 
@@ -250,46 +250,49 @@ def cmd_run(params: Params, seed: int, device, mesh=None) -> None:
 
     met = metrics.current()
     if params.input_kmer:
-        keys, counts = read_count_table(params.input_kmer, params.k)
-        keep = (counts >= params.min_kmer_coverage) & (
-            counts <= params.max_kmer_coverage)
-        met.lap("run/ingest")
+        with met.stage("run/ingest"):
+            keys, counts = read_count_table(params.input_kmer, params.k)
+            keep = (counts >= params.min_kmer_coverage) & (
+                counts <= params.max_kmer_coverage)
         contigs = assemble_from_counts(
             keys[keep], counts[keep], params, seed=seed, device=device)
     elif ingest_budget_bytes():
         from .count import count_kmers_from_files
 
-        keys, counts = count_kmers_from_files(
-            _pattern(params), k=params.k, min_cov=params.min_kmer_coverage,
-            max_cov=params.max_kmer_coverage, front_clip=params.front_clip,
-            end_clip=params.end_clip, params=params,
-            budget_bytes=ingest_budget_bytes(), device=device)
-        synchronize(device)
-        met.lap("run/counting")
+        with met.stage("run/counting", device=device):
+            keys, counts = count_kmers_from_files(
+                _pattern(params), k=params.k,
+                min_cov=params.min_kmer_coverage,
+                max_cov=params.max_kmer_coverage,
+                front_clip=params.front_clip, end_clip=params.end_clip,
+                params=params, budget_bytes=ingest_budget_bytes(),
+                device=device)
         met.set("run/solid_kmers", counts.numel())
         contigs = assemble_from_counts(keys, counts, params, seed=seed,
                                        device=device)
         met.set("run/contigs", len(contigs))
     else:
-        mat, lens = _load_read_matrix(params)
-        met.lap("run/ingest")
+        with met.stage("run/ingest"):
+            mat, lens = _load_read_matrix(params)
         met.set("run/reads", mat.shape[0])
         mesh = mesh if mesh is not None else _auto_mesh(device)
         if mesh is not None:
             from .parallel import assemble_reads_sharded
 
+            met.lap_start()   # the sharded laps run from here
             contigs = assemble_reads_sharded(mat, lens, params, mesh=mesh,
                                              seed=seed)
         else:
             contigs = assemble_reads(mat, lens, params, seed=seed,
                                      device=device)
     out = params.output_path
-    write_contigs_fasta(os.path.join(out, "part-00000"), contigs,
-                        gzip_output=params.gzip_output)
-    write_success_marker(out)
-    stats = assembly_stats(contigs)
-    write_assembly_report(os.path.join(out, "assembly_report.txt"), contigs)
-    met.lap("run/output")
+    with met.stage("run/output"):
+        write_contigs_fasta(os.path.join(out, "part-00000"), contigs,
+                            gzip_output=params.gzip_output)
+        write_success_marker(out)
+        stats = assembly_stats(contigs)
+        write_assembly_report(os.path.join(out, "assembly_report.txt"),
+                              contigs)
     log.info(
         "wrote %d contigs to %s (canonicalized: n=%d total=%dbp "
         "longest=%d N50=%d)", len(contigs), out, stats["n_contigs"],
@@ -381,9 +384,8 @@ def main(argv=None) -> int:
     if device.type == "cuda":
         torch.cuda.init()     # the allocator's stats need CUDA started
         torch.cuda.reset_peak_memory_stats(device)
-    with m.stage(args.command):
+    with m.stage(args.command, device=device):
         handler(params, args.seed, device)
-        synchronize(device)
     for name, n in launch_counts().items():
         m.set(f"launches/{name}", n - before.get(name, 0))
     if device.type == "cuda":

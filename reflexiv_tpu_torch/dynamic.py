@@ -20,14 +20,12 @@ JAX CPU ``lexsort`` keeps original index order there.
 """
 from __future__ import annotations
 
-import contextlib
 import dataclasses
 import gzip
 import json
 import logging
 import os
 import shutil
-import time
 from typing import Tuple
 
 import numpy as np
@@ -37,7 +35,7 @@ from . import metrics
 from .bitpack import (BASES_PER_WORD, check_k, encode_ascii, group_sentinel,
                       pack_bases, where_live, word_bases)
 from .count import count_kmers_auto
-from .device import resolve_device, synchronize
+from .device import resolve_device
 from .graph import build_initial_records
 from .io import has_success_marker, write_success_marker
 from .join_core import first_per_segment, lexsort_rows, segments
@@ -269,19 +267,6 @@ def _guard_reduce_signature(out: str, params: Params) -> None:
         json.dump(sig, fh)
 
 
-@contextlib.contextmanager
-def _lap(name: str, device):
-    """Add the wall time of the block to ``reduce/<name>`` in metrics.json
-    (summed over the ladder), the device synchronized at both ends."""
-    synchronize(device)
-    t0 = time.perf_counter()
-    try:
-        yield
-    finally:
-        synchronize(device)
-        metrics.current().add_time(f"reduce/{name}", time.perf_counter() - t0)
-
-
 def dynamic_reduction(params: Params, *, seed: int = 0, device,
                       plain: bool = False) -> None:
     """``reduce`` command (``dynamic.dynamic_reduction``): per-k count +
@@ -326,14 +311,14 @@ def dynamic_reduction(params: Params, *, seed: int = 0, device,
     def reads():
         """The read matrix on the device, loaded when first needed."""
         if not loaded:
-            with _lap("ingest", device):
+            with met.stage("reduce/ingest", device=device, quiet=True):
                 mat, lens = load_reads_filtered(pattern, params)
                 loaded.extend(torch.from_numpy(x).to(device)
                               for x in (mat, lens))
         return loaded
 
     if budget:
-        with _lap("ingest", device):
+        with met.stage("reduce/ingest", device=device, quiet=True):
             read_width = scan_max_read_length(pattern)
     else:
         read_width = reads()[0].shape[1]
@@ -342,7 +327,7 @@ def dynamic_reduction(params: Params, *, seed: int = 0, device,
         clips = dict(k=k, min_cov=min_cov, max_cov=max_cov,
                      front_clip=params.front_clip, end_clip=params.end_clip,
                      device=device, plain=plain)
-        with _lap("count", device):
+        with met.stage("reduce/count", device=device, quiet=True):
             if budget:
                 return count_kmers_from_files(
                     pattern, params=params, budget_bytes=budget, **clips)
@@ -350,7 +335,7 @@ def dynamic_reduction(params: Params, *, seed: int = 0, device,
                                     **clips)
 
     def write_set(directory, triple, k):
-        with _lap("write", device):
+        with met.stage("reduce/write", device=device, quiet=True):
             met.add("reduce/bytes_written",
                     _write_sorted_set(directory, triple, k, device=device))
 
@@ -371,7 +356,7 @@ def dynamic_reduction(params: Params, *, seed: int = 0, device,
         else:
             if params.sensitive:
                 mat, lens = reads()
-                with _lap("count", device):
+                with met.stage("reduce/count", device=device, quiet=True):
                     keys, counts = mercy_kmer_table(
                         mat, lens, k=k, min_cov=params.min_kmer_coverage,
                         max_cov=params.max_kmer_coverage, device=device,
@@ -379,9 +364,9 @@ def dynamic_reduction(params: Params, *, seed: int = 0, device,
             else:
                 keys, counts = count_k(
                     k, params.min_kmer_coverage, params.max_kmer_coverage)
-            with _lap("write", device):
+            with met.stage("reduce/write", device=device, quiet=True):
                 write_count_table(cdir, keys, counts, k)
-        with _lap("sort", device):
+        with met.stage("reduce/sort", device=device, quiet=True):
             sorted_sets[k] = sort_k_records(keys, counts, k, params)
         del keys, counts
         write_set(sdir, sorted_sets[k], k)
@@ -396,7 +381,7 @@ def dynamic_reduction(params: Params, *, seed: int = 0, device,
             sorted_sets[k2] = read_sorted_set(
                 os.path.join(out, f"Count_{k2}_sorted"), k2)
             continue
-        with _lap("pair", device):
+        with met.stage("reduce/pair", device=device, quiet=True):
             shorts, longs = reduce_k_pair(sorted_sets[k1], sorted_sets[k2],
                                           k1, k2, device=device)
         sorted_sets[k1] = shorts
@@ -421,7 +406,7 @@ def dynamic_reduction(params: Params, *, seed: int = 0, device,
             keys, counts = count_k(ssize, 1, 1)
             stitch_params = dataclasses.replace(
                 params, min_kmer_coverage=1, max_kmer_coverage=1_000_000)
-            with _lap("sort", device):
+            with met.stage("reduce/sort", device=device, quiet=True):
                 triple = sort_k_records(keys, counts, ssize, stitch_params)
             write_set(sdir, triple, ssize)
             met.set("reduce/records_stitch31", len(triple[0]))

@@ -6,6 +6,9 @@ wall times and record/k-mer counters are first-class and written to
 ``<outfile>/metrics.json`` so production runs are observable without a
 Spark UI. Used by the CLI (every command) and the hot pipeline
 stages; zero overhead when never queried (plain dict + perf_counter).
+While a ``torch.profiler`` profile records, every ``stage()`` is also a
+range of the same name on the profiler's clock, so a trace shows what the
+program was doing across each gap in the device's work.
 """
 from __future__ import annotations
 
@@ -16,6 +19,11 @@ import os
 import time
 from collections import OrderedDict
 from typing import Dict, Iterator
+
+from torch.autograd import profiler as _autograd_profiler
+from torch.profiler import record_function
+
+from .device import synchronize
 
 log = logging.getLogger("reflexiv_tpu_torch")
 
@@ -30,14 +38,33 @@ class Metrics:
         self._t0 = time.perf_counter()
 
     @contextlib.contextmanager
-    def stage(self, name: str) -> Iterator[None]:
+    def stage(self, name: str, *, device=None, quiet: bool = False
+              ) -> Iterator[None]:
+        """Add the wall time of the block to the timer ``name`` and log it
+        (``quiet`` skips the log line). With ``device``, the device is
+        synchronized before the block and at its end, so the time holds
+        the block's device work and none queued before it. While a
+        ``torch.profiler`` profile records, the block is also a
+        ``record_function`` range named ``name``; otherwise none is made,
+        since a range costs microseconds even with no profiler running."""
+        if device is not None:
+            synchronize(device)
+        rng = None
+        if _autograd_profiler._is_profiler_enabled:
+            rng = record_function(name)
+            rng.__enter__()
         t0 = time.perf_counter()
         try:
             yield
+            if device is not None:
+                synchronize(device)
         finally:
             dt = time.perf_counter() - t0
+            if rng is not None:
+                rng.__exit__(None, None, None)
             self.timers[name] = self.timers.get(name, 0.0) + dt
-            log.info("stage %s: %.2f s", name, dt)
+            if not quiet:
+                log.info("stage %s: %.2f s", name, dt)
 
     def lap_start(self) -> None:
         """Reset the lap clock (start of a staged pipeline)."""

@@ -29,6 +29,8 @@ from typing import List, Optional, Tuple
 
 import numpy as np
 
+from . import metrics
+
 log = logging.getLogger("reflexiv_tpu_torch")
 
 _NATIVE_DIR = os.path.join(os.path.dirname(os.path.dirname(
@@ -205,7 +207,10 @@ def load_reads_native(
     Files decode concurrently on a thread pool (the C calls release the
     GIL), and a large plain FASTQ file is also byte-range split at record
     boundaries and parsed by several threads. Returns None when the native
-    library is unavailable.
+    library is unavailable. Stages (timers, and ranges on a profiler's
+    clock): ``ingest/scan``, the first pass (inflate, count the records
+    and the longest); ``ingest/load``, the second (inflate again, parse,
+    pack into the matrix, whose pages are first touched there).
     """
     lib = _get_lib()
     if lib is None:
@@ -231,13 +236,13 @@ def load_reads_native(
         n, mx = _scan(lib, path, fmt)
         return n, mx, None
 
-    with ThreadPoolExecutor(max_workers=threads) as pool:
+    met = metrics.current()
+    with met.stage("ingest/scan", quiet=True), ThreadPoolExecutor(
+            max_workers=threads) as pool:
         scans = list(pool.map(scan_one, paths))
 
     total = sum(n for n, _m, _c in scans)
     stride = max((m for _n, m, _c in scans), default=0)
-    codes = np.zeros((total, stride), dtype=np.uint8)
-    lens = np.zeros(total, dtype=np.int32)
     starts = np.cumsum([0] + [n for n, _m, _c in scans])
 
     def load_one(i):
@@ -266,8 +271,11 @@ def load_reads_native(
             raise OSError(f"native load failed for {path}")
         return int(got)
 
-    with ThreadPoolExecutor(max_workers=threads) as pool:
-        gots = list(pool.map(load_one, range(len(paths))))
+    with met.stage("ingest/load", quiet=True):
+        codes = np.zeros((total, stride), dtype=np.uint8)
+        lens = np.zeros(total, dtype=np.int32)
+        with ThreadPoolExecutor(max_workers=threads) as pool:
+            gots = list(pool.map(load_one, range(len(paths))))
     if sum(gots) != total:
         # scan and load parse identically, so a mismatch means the input
         # changed mid-read: rows would be misplaced in the matrix

@@ -76,9 +76,10 @@ def stitch_contigs(bases, lengths, contigs: List[str], params: Params, *,
     ``Assembly_stitched_<k>/`` under ``-outfile`` when one is set.
     ``plain=True`` counts and cuts windows through the kernels' plain
     torch versions. Counters ``stitch/records_k<k>`` (records entering the
-    loop), ``stitch/contigs_k<k>`` and, on a card, ``stitch/peak_bytes_k<k>``
-    (the most device memory allocated since the caller last reset the
-    peak); laps ``stitch/k<k>``."""
+    loop), ``stitch/extension_rounds_k<k>``, ``stitch/contigs_k<k>`` and,
+    on a card, ``stitch/peak_bytes_k<k>`` (the most device memory
+    allocated since the caller last reset the peak); laps
+    ``stitch/k<k>``."""
     from .io import write_contigs_fasta, write_success_marker
     from .meta import dedup_contigs
 

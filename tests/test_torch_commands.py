@@ -14,7 +14,7 @@ from reflexiv_tpu.dynamic import _write_sorted_set, sort_k_records
 from reflexiv_tpu.io import reads_to_matrix
 from reflexiv_tpu.params import Params
 from reflexiv_tpu.stitch import stitch_contigs as jax_stitch
-from reflexiv_tpu_torch import chains, cli
+from reflexiv_tpu_torch import chains, cli, metrics
 from reflexiv_tpu_torch.assembler import (initial_records_from_counts,
                                           run_extension_loop)
 from reflexiv_tpu_torch.contigs import emit_contigs
@@ -119,9 +119,13 @@ def test_stitch_contigs_matches_jax(gap_case):
     _d, genome, mat, lens, base, _fq, _fa = gap_case
     params = Params(k=21, min_kmer_coverage=2, min_contig=150)
     want = jax_stitch(mat, lens, base, params, klist=(21,), seed=4)
+    met = metrics.reset()
     got = stitch_contigs(mat, lens, base, params, klist=(21,), seed=4,
                          device="cpu")
     assert got == want
+    # a stitch's rounds are its own counter a k, never run's
+    assert met.counts["stitch/extension_rounds_k21"] > 0
+    assert "run/extension_rounds" not in met.counts
     best = max(got, key=len)
     assert len(best) >= 600
     assert best in genome or oracle.revcomp(best) in genome
