@@ -93,9 +93,11 @@ class Metrics:
         self.counts[name] = int(n)
 
     def snapshot(self) -> Dict:
+        # timers to the microsecond: a stage of under half a millisecond
+        # (a small file's matrix fill) would read 0 at the millisecond
         return {
             "wall_s": round(time.perf_counter() - self._t0, 3),
-            "stages_s": {k: round(v, 3) for k, v in self.timers.items()},
+            "stages_s": {k: round(v, 6) for k, v in self.timers.items()},
             "counters": dict(self.counts),
         }
 

@@ -29,7 +29,7 @@ from typing import List, Optional, Tuple
 
 import numpy as np
 
-from . import metrics
+from . import ingest, metrics
 
 log = logging.getLogger("reflexiv_tpu_torch")
 
@@ -40,7 +40,6 @@ _SO_PATH = os.path.join(_NATIVE_DIR, "libreflexiv_native.so")
 _lib: Optional[ctypes.CDLL] = None
 _build_failed = False
 
-SPLIT_MIN_BYTES = 32 << 20   # split single plain FASTQ files above this
 _N_THREADS = max(2, min(16, os.cpu_count() or 2))
 _I64P = ctypes.POINTER(ctypes.c_int64)
 _I8P = ctypes.POINTER(ctypes.c_int8)
@@ -205,81 +204,79 @@ def load_reads_native(
     """Decode FASTQ (fmt=0) / FASTA (fmt=1) files into (codes, lens).
 
     Files decode concurrently on a thread pool (the C calls release the
-    GIL), and a large plain FASTQ file is also byte-range split at record
-    boundaries and parsed by several threads. Returns None when the native
-    library is unavailable. Stages (timers, and ranges on a profiler's
-    clock): ``ingest/scan``, the first pass (inflate, count the records
-    and the longest); ``ingest/load``, the second (inflate again, parse,
-    pack into the matrix, whose pages are first touched there).
+    GIL), their rows in path order. As FASTQ, each file is read in one
+    pass where its library builds (:class:`ingest.FastqPass`: inflated
+    once on one thread, parsed and packed on others), else in two passes
+    (``rfx_scan``, ``rfx_load``), as FASTA always is. Returns None when
+    the native library is unavailable.
+    Stages (timers, and ranges on a profiler's clock): ``ingest/scan``,
+    the pass over the files (one pass: inflate, parse, pack into blocks;
+    two passes: the first, counting the records and the longest);
+    ``ingest/load``, building the matrix (its allocation and first-touch
+    faults, and the one pass's parallel fill from the blocks or the
+    second pass: inflate again, parse, pack). Counters: files read in one
+    pass (``ingest/one_pass_files``), the bytes they inflated
+    (``ingest/inflated_bytes``), and the timer ``ingest/inflate_wait_s``,
+    the time their inflating threads waited for a free block.
     """
     lib = _get_lib()
     if lib is None:
         return None
     threads = threads or _N_THREADS
-
-    split_paths = {}
-    if fmt == 0:
-        for p in paths:
-            if _is_plain_fastq(p) and os.path.getsize(p) >= SPLIT_MIN_BYTES:
-                split_paths[p] = _splits_of(lib, p, threads)
+    one_pass = ingest.lib() if fmt == 0 else None
+    passes: List[ingest.FastqPass] = []   # freed whatever happens
 
     def scan_one(path):
-        if path in split_paths:
-            a = split_paths[path]
-            ns = len(a) - 1
-            counts = np.zeros(ns, np.int64)
-            maxlens = np.zeros(ns, np.int64)
-            lib.rfx_fastq_scan_mt(
-                path.encode(), a.ctypes.data_as(_I64P), ns,
-                counts.ctypes.data_as(_I64P), maxlens.ctypes.data_as(_I64P))
-            return int(counts.sum()), int(maxlens.max(initial=0)), counts
+        """``(reads, longest, the one pass or None for two passes)``"""
+        if one_pass is not None:
+            got = ingest.FastqPass(one_pass, path, threads)
+            passes.append(got)
+            return got.reads, got.longest, got
         n, mx = _scan(lib, path, fmt)
         return n, mx, None
 
-    met = metrics.current()
-    with met.stage("ingest/scan", quiet=True), ThreadPoolExecutor(
-            max_workers=threads) as pool:
-        scans = list(pool.map(scan_one, paths))
-
-    total = sum(n for n, _m, _c in scans)
-    stride = max((m for _n, m, _c in scans), default=0)
-    starts = np.cumsum([0] + [n for n, _m, _c in scans])
-
     def load_one(i):
         path = paths[i]
-        n, _mx, counts = scans[i]
+        n, _mx, part = scans[i]
         at = int(starts[i])
-        if counts is not None:
-            a = split_paths[path]
-            row_off = at + np.concatenate(
-                [[0], np.cumsum(counts[:-1])]).astype(np.int64)
-            got = lib.rfx_fastq_load_mt(
-                path.encode(), a.ctypes.data_as(_I64P),
-                row_off.ctypes.data_as(_I64P), len(a) - 1,
-                codes.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8)),
-                lens.ctypes.data_as(ctypes.POINTER(ctypes.c_int32)),
-                stride,
-            )
-        else:
-            got = lib.rfx_load(
-                path.encode(), fmt,
-                codes[at:].ctypes.data_as(ctypes.POINTER(ctypes.c_uint8)),
-                lens[at:].ctypes.data_as(ctypes.POINTER(ctypes.c_int32)),
-                n, stride,
-            )
+        if part is not None:
+            part.fill(codes[at:], lens[at:], threads)
+            return n
+        got = lib.rfx_load(
+            path.encode(), fmt,
+            codes[at:].ctypes.data_as(ctypes.POINTER(ctypes.c_uint8)),
+            lens[at:].ctypes.data_as(ctypes.POINTER(ctypes.c_int32)),
+            n, stride,
+        )
         if got < 0:
             raise OSError(f"native load failed for {path}")
         return int(got)
 
-    with met.stage("ingest/load", quiet=True):
-        codes = np.zeros((total, stride), dtype=np.uint8)
-        lens = np.zeros(total, dtype=np.int32)
-        with ThreadPoolExecutor(max_workers=threads) as pool:
-            gots = list(pool.map(load_one, range(len(paths))))
+    met = metrics.current()
+    try:
+        with met.stage("ingest/scan", quiet=True), ThreadPoolExecutor(
+                max_workers=threads) as pool:
+            scans = list(pool.map(scan_one, paths))
+
+        total = sum(n for n, _m, _p in scans)
+        stride = max((m for _n, m, _p in scans), default=0)
+        starts = np.cumsum([0] + [n for n, _m, _p in scans])
+
+        with met.stage("ingest/load", quiet=True):
+            codes = np.zeros((total, stride), dtype=np.uint8)
+            lens = np.zeros(total, dtype=np.int32)
+            with ThreadPoolExecutor(max_workers=threads) as pool:
+                gots = list(pool.map(load_one, range(len(paths))))
+    finally:
+        for got in passes:
+            got.close()
     if sum(gots) != total:
         # scan and load parse identically, so a mismatch means the input
         # changed mid-read: rows would be misplaced in the matrix
         raise OSError(f"native load row mismatch for {paths}")
+    met.add("ingest/one_pass_files", len(passes))
+    met.add("ingest/inflated_bytes", sum(got.inflated for got in passes))
+    met.add_time("ingest/inflate_wait_s", sum(got.wait_s for got in passes))
     return codes, lens
 
 

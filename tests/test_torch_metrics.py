@@ -1,8 +1,8 @@
 """The port's stage timers: ``Metrics.stage`` accumulates its timer, and
 while a ``torch.profiler`` profile records it is also a range of the same
 name on the profiler's clock (and opens none otherwise); the ``run``
-command's stages, ingest's two passes over the input and their ranges,
-nested in order."""
+command's stages, ingest's pass over the input and its matrix and their
+ranges, nested in order, and the one-pass ingest's counters."""
 import gzip
 import json
 import os
@@ -12,7 +12,7 @@ import time
 import pytest
 from torch.profiler import ProfilerActivity, profile
 
-from reflexiv_tpu_torch import cli, metrics, native
+from reflexiv_tpu_torch import cli, ingest, metrics, native
 
 RUN_STAGES = ("run/ingest", "run/counting", "run/graph", "run/extension",
               "run/emit", "run/output")
@@ -123,6 +123,31 @@ def test_cli_run_splits_ingest(gz_fastq, tmp_path):
     assert scan > 0 and load > 0
     # metrics.json rounds each timer to the millisecond
     assert scan + load <= got["run/ingest"] + 0.002
+
+
+@pytest.mark.parametrize("fmt", ["fastq", "fasta"])
+def test_cli_run_counts_the_one_pass(gz_fastq, tmp_path, fmt):
+    """``run`` reads the gzipped FASTQ in one pass, inflating its text
+    once; the same reads as one-line plain FASTA too, since FASTQ mode
+    reads every file first (and keeps every other record of it, ROADMAP
+    Queue 3)."""
+    if ingest.lib() is None or native._get_lib() is None:
+        pytest.skip("the one-pass or the native library is not available")
+    with gzip.open(gz_fastq, "rb") as fh:
+        text = fh.read()
+    path, want = gz_fastq, (1, len(text))
+    if fmt == "fasta":
+        lines = text.decode().splitlines()
+        path = str(tmp_path / "reads.fa")
+        with open(path, "w") as fh:
+            fh.writelines(f">{h[1:]}\n{s}\n"
+                          for h, s in zip(lines[0::4], lines[1::4]))
+        want = (1, os.path.getsize(path))
+    met = _run(path, str(tmp_path / "asm"))
+    counts = met["counters"]
+    assert (counts["ingest/one_pass_files"],
+            counts["ingest/inflated_bytes"]) == want
+    assert met["stages_s"]["ingest/inflate_wait_s"] >= 0
 
 
 def test_cli_run_ranges_nest_in_order(gz_fastq, tmp_path):
