@@ -316,8 +316,11 @@ class _RunningTable:
         if self.keys is None:
             self.keys, self.counts = keys, counts
         else:
-            self.keys, self.counts = merge_count_tables(
-                self.keys, self.counts, keys, counts)
+            met = metrics.current()
+            met.add("count/merged_rows", self.keys.shape[0] + keys.shape[0])
+            with met.stage("count/merge", device=self.device, quiet=True):
+                self.keys, self.counts = merge_count_tables(
+                    self.keys, self.counts, keys, counts)
         if self.keys.shape[0] > self.cap:
             self.spilled.append((self.keys.cpu(), self.counts.cpu()))
             self.keys = self.counts = None
@@ -368,7 +371,10 @@ def _stream(chunks, klist, *, min_cov: int, max_cov: int, front_clip: int,
     chunk goes to the device once. Times the loop into
     ``count.input_stall_s`` (waiting on the input) and
     ``count.device_loop_s`` (upload, count, merge), and, when ``chunks``
-    comes through the prefetch thread, its work into ``count.ingest_s``."""
+    comes through the prefetch thread, its work into ``count.ingest_s``.
+    Each chunk's count is the stage ``count/pass`` and each merge into a
+    running table ``count/merge`` (both synchronize the device), with the
+    rows entering the merges summed into ``count/merged_rows``."""
     device = resolve_device(device)
     for k in klist:
         check_k(k)
@@ -388,9 +394,12 @@ def _stream(chunks, klist, *, min_cov: int, max_cov: int, front_clip: int,
         lens = _as_device(lengths, torch.int32, device)
         for k in klist:
             if b.shape[1] >= k:
-                tables[k].add(*_count_chunk(
-                    b, lens, k=k, front_clip=front_clip, end_clip=end_clip,
-                    device=device, plain=plain))
+                with met.stage("count/pass", device=device, quiet=True):
+                    table = _count_chunk(
+                        b, lens, k=k, front_clip=front_clip,
+                        end_clip=end_clip, device=device, plain=plain)
+                tables[k].add(*table)
+                del table
         del b, lens
         met.add_time("count.device_loop_s", time.perf_counter() - t1)
     if isinstance(chunks, _PrefetchedChunks):
