@@ -1,11 +1,16 @@
 """One-pass FASTQ ingest (``csrc/ingest.cpp``), bound with ctypes.
 
-One thread inflates each file once, in blocks, while worker threads parse
-and pack each block's reads; the blocks' reads are then copied into the
-``(reads, longest)`` matrix on several threads (:class:`FastqPass`). The
-matrix and lengths equal ``native``'s two passes (``rfx_scan`` +
+Each file is inflated once, in blocks, and each block's reads parsed and
+packed; the blocks' reads are then copied into the ``(reads, longest)``
+matrix on several threads (:class:`FastqPass`). A gzip file of several
+members is inflated a member to a thread on all of its threads, each
+member confirmed by the chain of trailers before it; any other file (plain
+text, one member, or a chain that fails) by one thread, while others
+parse. The matrix and lengths equal ``native``'s two passes (``rfx_scan`` +
 ``rfx_load``) byte for byte; ``native.load_reads_native`` takes this path
-for every file it reads as FASTQ.
+for every file it reads as FASTQ, and the two passes for a file where zlib
+reports a data error (``FastqPass.two_passes``), since those end the text
+where ``read_line`` does.
 
 The library is built on first use with plain ``g++`` and zlib:
 
@@ -107,23 +112,32 @@ def lib() -> Optional[ctypes.CDLL]:
 
 
 class FastqPass:
-    """One FASTQ file read in one pass: ``reads``, ``longest``, the bytes
-    of text ``inflated`` and the seconds the inflating thread waited for a
-    free block (``wait_s``); :meth:`fill` writes the reads into a matrix
-    once, :meth:`close` frees them. ``block_bytes`` (0: the library's
-    default) sets the size of the inflated blocks."""
+    """One FASTQ file read in one pass on up to ``threads`` threads:
+    ``reads``, ``longest``, the bytes of text ``inflated``, the seconds
+    the inflating threads waited for a free block (``wait_s``), the gzip
+    ``members`` the chain accepted (0 where one thread read the file), the
+    ``inflate_threads``, the candidate member starts rejected
+    (``false_starts``) and whether the chain failed and one thread read
+    the file again (``fell_back``). Where zlib reported a data error,
+    ``two_passes`` is set and nothing is held: the caller reads the file
+    in the two passes. :meth:`fill` writes the reads into a matrix once,
+    :meth:`close` frees them. ``block_bytes`` (0: the library's default)
+    sets the size of the inflated blocks."""
 
     def __init__(self, handle: ctypes.CDLL, path: str, threads: int,
                  block_bytes: int = 0) -> None:
-        info = np.zeros(4, np.int64)
+        info = np.zeros(9, np.int64)
         self._lib = handle
         self._pass = handle.rfx_ingest_fastq(
             path.encode(), block_bytes, threads, info.ctypes.data_as(_I64P))
-        if not self._pass:
+        self.two_passes = bool(info[8])
+        if not self._pass and not self.two_passes:
             raise OSError(f"one-pass ingest failed for {path}")
         self.path = path
-        self.reads, self.longest, self.inflated = (int(v) for v in info[:3])
-        self.wait_s = int(info[3]) * 1e-9
+        (self.reads, self.longest, self.inflated, wait_ns, self.members,
+         self.inflate_threads, self.false_starts,
+         self.fell_back) = (int(v) for v in info[:8])
+        self.wait_s = wait_ns * 1e-9
 
     def fill(self, codes: np.ndarray, lens: np.ndarray, threads: int) -> None:
         """Write the reads into the first ``reads`` rows of ``codes`` (a

@@ -205,9 +205,12 @@ def load_reads_native(
 
     Files decode concurrently on a thread pool (the C calls release the
     GIL), their rows in path order. As FASTQ, each file is read in one
-    pass where its library builds (:class:`ingest.FastqPass`: inflated
-    once on one thread, parsed and packed on others), else in two passes
-    (``rfx_scan``, ``rfx_load``), as FASTA always is. Returns None when
+    pass where its library builds (:class:`ingest.FastqPass`: a gzip file
+    of several members inflated a member to a thread, any other file on
+    one thread; parsed and packed on the others), else in two passes
+    (``rfx_scan``, ``rfx_load``), as FASTA always is, and as a file is
+    where zlib reports a data error. Files read at once share ``threads``
+    (at least two each) rather than take as many each. Returns None when
     the native library is unavailable.
     Stages (timers, and ranges on a profiler's clock): ``ingest/scan``,
     the pass over the files (one pass: inflate, parse, pack into blocks;
@@ -216,8 +219,13 @@ def load_reads_native(
     faults, and the one pass's parallel fill from the blocks or the
     second pass: inflate again, parse, pack). Counters: files read in one
     pass (``ingest/one_pass_files``), the bytes they inflated
-    (``ingest/inflated_bytes``), and the timer ``ingest/inflate_wait_s``,
-    the time their inflating threads waited for a free block.
+    (``ingest/inflated_bytes``), the gzip members their chains accepted
+    (``ingest/members``), the most threads that inflated one file
+    (``ingest/inflate_threads``), the candidate member starts rejected
+    (``ingest/false_member_starts``), the files whose chain failed and
+    that one thread read again (``ingest/member_fallbacks``), and the
+    timer ``ingest/inflate_wait_s``, the time their inflating threads
+    waited for a free block, summed over the threads.
     """
     lib = _get_lib()
     if lib is None:
@@ -225,13 +233,16 @@ def load_reads_native(
     threads = threads or _N_THREADS
     one_pass = ingest.lib() if fmt == 0 else None
     passes: List[ingest.FastqPass] = []   # freed whatever happens
+    per_file = max(2, threads // max(1, len(paths)))
+    at_once = threads if one_pass is None else max(1, threads // per_file)
 
     def scan_one(path):
         """``(reads, longest, the one pass or None for two passes)``"""
         if one_pass is not None:
-            got = ingest.FastqPass(one_pass, path, threads)
+            got = ingest.FastqPass(one_pass, path, per_file)
             passes.append(got)
-            return got.reads, got.longest, got
+            if not got.two_passes:
+                return got.reads, got.longest, got
         n, mx = _scan(lib, path, fmt)
         return n, mx, None
 
@@ -240,7 +251,7 @@ def load_reads_native(
         n, _mx, part = scans[i]
         at = int(starts[i])
         if part is not None:
-            part.fill(codes[at:], lens[at:], threads)
+            part.fill(codes[at:], lens[at:], per_file)
             return n
         got = lib.rfx_load(
             path.encode(), fmt,
@@ -255,7 +266,7 @@ def load_reads_native(
     met = metrics.current()
     try:
         with met.stage("ingest/scan", quiet=True), ThreadPoolExecutor(
-                max_workers=threads) as pool:
+                max_workers=at_once) as pool:
             scans = list(pool.map(scan_one, paths))
 
         total = sum(n for n, _m, _p in scans)
@@ -265,7 +276,7 @@ def load_reads_native(
         with met.stage("ingest/load", quiet=True):
             codes = np.zeros((total, stride), dtype=np.uint8)
             lens = np.zeros(total, dtype=np.int32)
-            with ThreadPoolExecutor(max_workers=threads) as pool:
+            with ThreadPoolExecutor(max_workers=at_once) as pool:
                 gots = list(pool.map(load_one, range(len(paths))))
     finally:
         for got in passes:
@@ -274,9 +285,17 @@ def load_reads_native(
         # scan and load parse identically, so a mismatch means the input
         # changed mid-read: rows would be misplaced in the matrix
         raise OSError(f"native load row mismatch for {paths}")
-    met.add("ingest/one_pass_files", len(passes))
-    met.add("ingest/inflated_bytes", sum(got.inflated for got in passes))
-    met.add_time("ingest/inflate_wait_s", sum(got.wait_s for got in passes))
+    read = [got for got in passes if not got.two_passes]
+    met.add("ingest/one_pass_files", len(read))
+    met.add("ingest/inflated_bytes", sum(got.inflated for got in read))
+    met.add_time("ingest/inflate_wait_s", sum(got.wait_s for got in read))
+    met.add("ingest/members", sum(got.members for got in read))
+    met.set("ingest/inflate_threads", max(
+        [met.counts.get("ingest/inflate_threads", 0)]
+        + [got.inflate_threads for got in read]))
+    met.add("ingest/false_member_starts",
+            sum(got.false_starts for got in passes))
+    met.add("ingest/member_fallbacks", sum(got.fell_back for got in passes))
     return codes, lens
 
 

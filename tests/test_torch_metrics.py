@@ -2,7 +2,8 @@
 while a ``torch.profiler`` profile records it is also a range of the same
 name on the profiler's clock (and opens none otherwise); the ``run``
 command's stages, ingest's pass over the input and its matrix and their
-ranges, nested in order, and the one-pass ingest's counters."""
+ranges, nested in order, and the one-pass ingest's counters, gzip members
+read on every thread among them."""
 import gzip
 import json
 import os
@@ -168,3 +169,29 @@ def test_cli_run_ranges_nest_in_order(gz_fastq, tmp_path):
         assert [n for _s, _e, n in inner] == ["ingest/scan", "ingest/load"]
         assert i0 <= inner[0][0] and inner[0][1] <= inner[1][0]
         assert inner[1][1] <= i1
+
+
+def test_cli_run_reads_gzip_members_on_every_thread(gz_fastq, tmp_path):
+    """``run`` on the reads as three gzip members: the chain accepts all
+    three, no file falls back to one thread, and the contigs equal those
+    of the same reads as one member."""
+    if ingest.lib() is None or native._get_lib() is None:
+        pytest.skip("the one-pass or the native library is not available")
+    with gzip.open(gz_fastq, "rb") as fh:
+        text = fh.read()
+    cuts = [0, len(text) // 3, 2 * len(text) // 3, len(text)]
+    path = str(tmp_path / "members.fq.gz")
+    with open(path, "wb") as fh:
+        for a, b in zip(cuts[:-1], cuts[1:]):
+            fh.write(gzip.compress(text[a:b]))
+    counts = _run(path, str(tmp_path / "members"))["counters"]
+    assert counts["ingest/members"] == 3
+    assert counts["ingest/member_fallbacks"] == 0
+    assert counts["ingest/inflated_bytes"] == len(text)
+    one = _run(gz_fastq, str(tmp_path / "one"))["counters"]
+    assert one["ingest/members"] == 0
+    with open(tmp_path / "members" / "part-00000", "rb") as fh:
+        got = fh.read()
+    with open(tmp_path / "one" / "part-00000", "rb") as fh:
+        want = fh.read()
+    assert got and got == want
