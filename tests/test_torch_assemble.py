@@ -1,6 +1,7 @@
 """End-to-end parity: the port's single-k ``run`` against the JAX package's
 on the ``test_e2e.py`` synthetics, the CLI's output layout, and the rule
 that the port never imports jax. Exact: the contig lists are equal."""
+import torch_threads  # noqa: F401
 import os
 import random
 import subprocess

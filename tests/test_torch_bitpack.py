@@ -1,6 +1,7 @@
 """Parity: the torch port's int64 bitpack against the JAX limb bitpack.
 
 Everything is integer, so every comparison is exact."""
+import torch_threads  # noqa: F401
 import numpy as np
 import pytest
 import jax.numpy as jnp

@@ -2,6 +2,7 @@
 JAX package's, through both CLIs on the cases of ``tests/test_subsystems.py``
 (file for file, byte for byte), the chain pool against the packed pool,
 and the CLI's dispatch. Exact: text and integers."""
+import torch_threads  # noqa: F401
 import random
 
 import pytest

@@ -1,5 +1,6 @@
 """Parity: the port's count table against ``reflexiv_tpu.count.count_kmers``,
 array for array once exported with ``limbs_from_keys`` (exact: integers)."""
+import torch_threads  # noqa: F401
 import os
 import random
 

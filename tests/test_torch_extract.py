@@ -5,6 +5,7 @@ the Pallas kernel in interpret mode, the JAX package's own CPU route, as a
 multiset of valid keys, and to the XLA extraction for the clips. Exact: the
 keys are integers. The CUDA kernel itself is checked against the plain
 version on the card in ``test_torch_kernels.py``."""
+import torch_threads  # noqa: F401
 import random
 
 import numpy as np

@@ -1,6 +1,7 @@
 """Parity: the port's fork-filtered record set against the JAX package's
 ``build_initial_records`` (row for row, live mask included) and the scalar
 oracle ``tests/oracle.py`` (as a set). Exact: integers."""
+import torch_threads  # noqa: F401
 import random
 
 import numpy as np

@@ -11,6 +11,7 @@ cut inside lines, records and CR LF pairs, with header fields, empty, or
 stored with a gzip header in their text; and files whose chain of
 members fails (trailing bytes, truncation, a flipped CRC), which one
 thread reads again. Exact: matrices and lengths equal byte for byte."""
+import torch_threads  # noqa: F401
 import ctypes
 import gzip
 import random

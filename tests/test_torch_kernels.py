@@ -7,6 +7,7 @@ with a card and no JAX:
 
 Without a card those tests skip; the rest check the wrappers' CPU route and
 argument checks. Every comparison is exact (integer keys)."""
+import torch_threads  # noqa: F401
 import numpy as np
 import pytest
 import torch

@@ -3,6 +3,7 @@ assembly on multi-word group keys against the JAX package's CPU forms
 (the stable lexsort round, the non-scatter-free census), row for row; then
 ``run``, ``mercy`` and read-graph reassembly at k = 41 and 61. Exact:
 integers and text."""
+import torch_threads  # noqa: F401
 import dataclasses
 import random
 

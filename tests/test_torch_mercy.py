@@ -5,6 +5,7 @@
 read-row blocks, and on the cases of ``tests/test_subsystems.py``; then
 ``reduce -accurate``, ``mercy`` and ``meta -accurate`` through both CLIs,
 file for file, byte for byte. Exact: integer tables and text."""
+import torch_threads  # noqa: F401
 import os
 import random
 

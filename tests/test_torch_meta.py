@@ -6,6 +6,7 @@ the summary-indexed loop (``REFLEXIV_INDEXED_ALWAYS=1``, the JAX package's
 TPU default; ``test_torch_meta_device_loop.py`` holds the default loop).
 Exact: contig lists are equal, headers and order included, and files byte
 for byte."""
+import torch_threads  # noqa: F401
 import os
 import random
 import shutil

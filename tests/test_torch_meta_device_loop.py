@@ -6,6 +6,7 @@ device loop for the faithful fixing passes, the handoff of a pool over
 checkpoints resumed across the packages, and the CLI. The same seeded
 inputs go through both packages; exact throughout: contig lists, headers
 and order included, and the stage files byte for byte."""
+import torch_threads  # noqa: F401
 import logging
 import os
 import re

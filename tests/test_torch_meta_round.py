@@ -8,6 +8,7 @@ open. The host round (``dynamic._pdyn_round_indexed_host``) is compared as
 a multiset of records on a duplicate-heavy input, with the ragged pool's
 dense width shrunk on both packages so the per-row overflow splice runs
 too. Exact: everything is integer."""
+import torch_threads  # noqa: F401
 import numpy as np
 import pytest
 import torch

@@ -4,6 +4,7 @@ name on the profiler's clock (and opens none otherwise); the ``run``
 command's stages, ingest's pass over the input and its matrix and their
 ranges, nested in order, and the one-pass ingest's counters, gzip members
 read on every thread among them."""
+import torch_threads  # noqa: F401
 import gzip
 import json
 import os

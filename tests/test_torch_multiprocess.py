@@ -11,6 +11,7 @@ child has its own timeout, so a hang fails the job and cannot stall the
 suite. The JAX imports live in the ``jx`` fixture, so the ``cuda`` tests
 import no jax and run on a card with ``python -m pytest --noconftest -p
 no:cacheprovider -m cuda tests/test_torch_multiprocess.py``."""
+import torch_threads
 import argparse
 import os
 import random
@@ -605,6 +606,25 @@ def _env():
 def _run(argv, timeout=CHILD_TIMEOUT):
     return subprocess.run([sys.executable, "-m"] + argv, env=_env(),
                           capture_output=True, text=True, timeout=timeout)
+
+
+def test_torch_threads_shares_the_cores_among_xdist_workers(monkeypatch):
+    """``torch_threads`` gives each xdist worker's torch pool
+    ``max(1, cpus // workers)`` threads when imported, and leaves the pool
+    alone outside xdist."""
+    share = torch_threads.thread_share()
+    if share is not None:
+        assert torch.get_num_threads() == share
+    monkeypatch.setattr(torch_threads.os, "sched_getaffinity",
+                        lambda pid: set(range(8)))
+    for workers, want in (("1", 8), ("3", 2), ("6", 1), ("16", 1)):
+        monkeypatch.setenv("PYTEST_XDIST_WORKER_COUNT", workers)
+        assert torch_threads.thread_share() == want
+    monkeypatch.delenv("PYTEST_XDIST_WORKER_COUNT")
+    before = torch.get_num_threads()
+    torch_threads.apply_share()
+    assert torch_threads.thread_share() is None
+    assert torch.get_num_threads() == before
 
 
 def test_multiprocess_smoke_module_on_cpu():

@@ -1,6 +1,7 @@
 """Parity for k >= 32: the port's W-word keys against the JAX package's
 ``ceil(k/16)`` uint32 limbs, for packing, count tables, fork-filtered
 records and the ``counter`` CLI. Exact: everything is integer."""
+import torch_threads  # noqa: F401
 import gzip
 import random
 

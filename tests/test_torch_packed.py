@@ -1,6 +1,7 @@
 """Parity: one packed extension round, the census and the pool operations
 of the port against the JAX package's CPU forms (lexsort + index round,
 non-scatter-free census), row for row. Exact: integers."""
+import torch_threads  # noqa: F401
 import random
 
 import numpy as np

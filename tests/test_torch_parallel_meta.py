@@ -12,6 +12,7 @@ The JAX imports live in the ``jx`` fixture, so the ``cuda`` test imports
 no jax and runs on a card with
 ``python -m pytest --noconftest -p no:cacheprovider -m cuda
 tests/test_torch_parallel_meta.py``."""
+import torch_threads  # noqa: F401
 import dataclasses
 import logging
 import random

@@ -5,6 +5,7 @@
 ``assemble_dynamic`` with its stage pools row for row and both packages
 resuming from the port's flat stage 02 pool, dense fixing, the
 ``dryrun_multichip`` meta chain, and the CLI's files byte for byte."""
+import torch_threads  # noqa: F401
 import os
 import shutil
 

@@ -5,6 +5,7 @@ JAX Pallas kernels in interpret mode, the JAX package's own CPU route, as
 whole arrays: head slack and pad tails included. The CUDA kernels are
 checked against the plain versions on the card in
 ``test_torch_kernels.py``. Exact: the arrays are integers."""
+import torch_threads  # noqa: F401
 import jax.numpy as jnp
 import numpy as np
 import pytest

@@ -7,6 +7,7 @@ oracle and the device form (``REFLEXIV_DEVICE_STAGES=1``; the port on the
 CPU, the JAX package on its CPU backend). Also the end index, the device
 map array for array, the ten mapping arrays of every form, and
 ``read_pairs_from_params``. Exact: integers and strings."""
+import torch_threads  # noqa: F401
 import random
 
 import numpy as np

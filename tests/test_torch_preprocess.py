@@ -4,6 +4,7 @@ each of its forms against the same JAX form on the cases of
 ``tests/test_subsystems.py`` and ``tests/test_native.py``, and the
 ``preprocess`` CLI on single, paired and interleaved input, file for file.
 Exact: integer matrices and text."""
+import torch_threads  # noqa: F401
 import random
 
 import numpy as np

@@ -3,6 +3,7 @@
 ``sort_k_records`` and ``reduce_k_pair`` are compared array for array (row
 order included), and the ``reduce`` command through both CLIs file for
 file, byte for byte. Exact: everything is integer or text."""
+import torch_threads  # noqa: F401
 import json
 import os
 import random

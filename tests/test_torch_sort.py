@@ -5,6 +5,7 @@ The plain version (what the wrapper runs on CPU tensors) is held to
 duplicates and a sentinel tail; exactly equal up to the JAX padding. The
 CUDA radix kernel is checked against it on the card in
 ``test_torch_kernels.py``."""
+import torch_threads  # noqa: F401
 import numpy as np
 import pytest
 import jax.numpy as jnp

@@ -18,6 +18,7 @@ no jax:
     python -m pytest --noconftest -p no:cacheprovider -m cuda tests/test_torch_sort_rows.py
 
 Every comparison is exact (integer rows)."""
+import torch_threads  # noqa: F401
 import numpy as np
 import pytest
 import torch

@@ -5,6 +5,7 @@ configuration's reads (150 bp, 30x, both strands, 0.5% redraws, gzip):
 the contigs agree, the job writes the streamed count's stages and
 counter, and each stage is a range under the profiler; the partitioned
 count equals the unpartitioned reference's row for row."""
+import torch_threads  # noqa: F401
 import json
 import os
 import sys

@@ -5,6 +5,7 @@ k = 21, 31 and 33 (a two-word leg), the out-of-core ingest against
 whole-matrix loading, and the commands under ``REFLEXIV_INGEST_BUDGET_MB``
 through both CLIs. Exact: tables equal row for row once exported with
 ``limbs_from_keys``, files byte for byte."""
+import torch_threads  # noqa: F401
 import gzip
 import json
 import random
