@@ -243,7 +243,7 @@ def cmd_run(params: Params, seed: int, device, mesh=None) -> None:
     ``mesh``, or on :func:`_auto_mesh`'s when none is given and there is
     one; ``-kmerc`` and the budget stay on one card."""
     from .assembler import assemble_from_counts, assemble_reads
-    from .contigs import assembly_stats, write_assembly_report
+    from .contigs import write_assembly_report
     from .io import (ingest_budget_bytes, write_contigs_fasta,
                      write_success_marker)
     from .kmer_io import read_count_table
@@ -287,12 +287,13 @@ def cmd_run(params: Params, seed: int, device, mesh=None) -> None:
                                      device=device)
     out = params.output_path
     with met.stage("run/output"):
-        write_contigs_fasta(os.path.join(out, "part-00000"), contigs,
-                            gzip_output=params.gzip_output)
-        write_success_marker(out)
-        stats = assembly_stats(contigs)
-        write_assembly_report(os.path.join(out, "assembly_report.txt"),
-                              contigs)
+        with met.stage("output/fasta"):
+            write_contigs_fasta(os.path.join(out, "part-00000"), contigs,
+                                gzip_output=params.gzip_output)
+            write_success_marker(out)
+        with met.stage("output/report"):
+            stats = write_assembly_report(
+                os.path.join(out, "assembly_report.txt"), contigs)
     log.info(
         "wrote %d contigs to %s (canonicalized: n=%d total=%dbp "
         "longest=%d N50=%d)", len(contigs), out, stats["n_contigs"],

@@ -3,7 +3,8 @@
 FASTQ/FASTA readers into a ``(R, L)`` uint8 2-bit code matrix plus lengths,
 bounded read chunks straight from disk for out-of-core counting
 (:func:`iter_read_chunks`, under ``REFLEXIV_INGEST_BUDGET_MB``), and the
-FASTA contig / ``_SUCCESS`` writers. Replaces the reference's
+FASTA contig / ``_SUCCESS`` writers (contigs spelled on the device are
+written from their bytes). Replaces the reference's
 Spark-side file plumbing (``ReflexivDSMain.java:4037-4072``,
 ``:715-795``). Everything here is numpy; the caller moves the matrix to its
 device.
@@ -304,7 +305,10 @@ def contigs_to_segment_matrix(
     return reads_to_matrix(pieces)
 
 
-def wrap_sequence(seq: str, width: int = 100) -> str:
+FASTA_LINE = 100   # bases a FASTA line
+
+
+def wrap_sequence(seq: str, width: int = FASTA_LINE) -> str:
     """100-column FASTA wrapping (``ReflexivDSMain.java:773-794``)."""
     return "\n".join(seq[i : i + width] for i in range(0, len(seq), width))
 
@@ -315,12 +319,23 @@ def write_contigs_fasta(
     gzip_output: bool = False,
 ) -> None:
     """Write (id_line, sequence) contigs as FASTA; IDs follow the reference
-    format ``>Contig-<len>-(<left>,<right>)-<idx>``."""
+    format ``>Contig-<len>-(<left>,<right>)-<idx>``. Contigs that carry the
+    FASTA bodies the device spelled for them (``contigs.EmittedContigs``)
+    are written from those, a header line and a slice of the bodies each;
+    any other list from its strings. The bytes are the same."""
     os.makedirs(os.path.dirname(os.path.abspath(path)) or ".", exist_ok=True)
     opener = gzip.open if gzip_output else open
-    with opener(path, "wt") as fh:
-        for cid, seq in contigs:
-            fh.write(f"{cid}\n{wrap_sequence(seq)}\n")
+    spelled = getattr(contigs, "spelled", None)
+    if spelled is None:
+        with opener(path, "wt") as fh:
+            for cid, seq in contigs:
+                fh.write(f"{cid}\n{wrap_sequence(seq)}\n")
+        return
+    bodies = (body for chunk in spelled for body in chunk.fasta_bodies())
+    with opener(path, "wb") as fh:
+        for (cid, _seq), body in zip(contigs, bodies):
+            fh.write(f"{cid}\n".encode())
+            fh.write(body)
 
 
 def write_success_marker(directory: str) -> None:

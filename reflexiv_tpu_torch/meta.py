@@ -1325,7 +1325,7 @@ def dynamic_assembly(params: Params, *, seed: int = 0, device,
     ``<out>/04Patching/links.tsv``), and write
     ``<out>/Assembly/part-00000``, ``_SUCCESS`` and
     ``assembly_report.txt``."""
-    from .contigs import assembly_stats, write_assembly_report
+    from .contigs import write_assembly_report
     from .io import (load_reads_filtered, write_contigs_fasta,
                      write_success_marker)
 
@@ -1355,9 +1355,8 @@ def dynamic_assembly(params: Params, *, seed: int = 0, device,
     write_contigs_fasta(os.path.join(out_dir, "part-00000"), contigs,
                         gzip_output=params.gzip_output)
     write_success_marker(out_dir)
-    write_assembly_report(os.path.join(out_dir, "assembly_report.txt"),
-                          contigs)
-    stats = assembly_stats(contigs)
+    stats = write_assembly_report(
+        os.path.join(out_dir, "assembly_report.txt"), contigs)
     log.info("meta assembly: %d contigs -> %s (canonicalized: n=%d "
              "total=%dbp longest=%d N50=%d)", len(contigs), out_dir,
              stats["n_contigs"], stats["total_bp"], stats["longest"],
